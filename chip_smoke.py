@@ -1,0 +1,366 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+  python3 chip_smoke.py
+
+Run from the root of a checkout, on a machine with one card.  Every phase
+prints one JSON object on a line of its own:
+
+  device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
+  build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``;
+  kernels  each kernel bit-equal to its plain torch version on ragged shapes
+           and the main path's shapes, with its device time, the plain
+           version's, and the least time the card could take (``bound_ms``);
+  main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
+           support 0.2, P=4, K=16, with the kernels' launch counts in that run;
+  exact    the FITable on the card is the same for K in {1, 16, 64} and P in
+           {1, 4}, equals the port's own CPU run on a 20k-row database, and
+           equals brute force on T1I0.032P20PL6TL10 at 0.08;
+  profile  the main path once more under ``torch.profiler``: the card's busy
+           time and share of the wall, and the kernels' share of that.
+
+Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
+line.  Without CUDA, or outside a checkout, it exits 1 and prints no result.
+The script imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+THESIS_DB = "T500I0.1P50PL10TL40"
+SUPPORT = 0.2
+MID_DB = "T20I0.1P50PL10TL40"         # 20k rows, 100 items: also mined on the CPU
+SMALL_DB, SMALL_SUPPORT = "T1I0.032P20PL6TL10", 0.08  # small enough for brute force
+
+# H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): 3.35 TB/s of HBM3.
+# The data sheet gives no 32-bit integer rate.  The CUDA C++ Programming
+# Guide's arithmetic-instruction throughput table gives, per clock and SM on
+# compute capability 9.0, 64 32-bit integer adds or bitwise operations and 16
+# population counts; the card's SM count is read from the device, at the
+# H100 SXM's 1.98 GHz maximum SM clock.
+HBM_BYTES_PER_S = 3.35e12
+SM_CLOCK_HZ = 1.98e9
+INT32_PER_CLOCK_SM = 64
+POPC_PER_CLOCK_SM = 16
+
+# Each kernel at the shape where the main path spends its time in it: B1 in
+# Phase 4 on the miners' slabs (K=16, W=15625 words), B3 in Phases 1 and 2 on
+# the 2048-row sample (W=64).
+KERNELS = {
+    "multi_extension_supports": {
+        "replaces": "src/repro/kernels/multi_support.py:86", "main_shape": (16, 100, 15625)},
+    "extension_supports": {
+        "replaces": "src/repro/kernels/bitmap_support.py:67", "main_shape": (1, 100, 64)},
+}
+SOURCE = "src/repro_torch/kernels/csrc/support.cu"
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(torch, fn, launches: int, reps: int = 7) -> float:
+    """Median device time of one call of ``fn``, from CUDA events around a
+    CUDA graph of ``launches`` calls (so host overhead is not in it).  The
+    inputs stay in the 50 MB L2 from one call to the next, as the main path's
+    item bitmaps do from one DFS trip to the next."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / launches)
+    return statistics.median(times)
+
+
+def bound(K: int, I: int, W: int, sms: int):
+    """Least time for ``S[k, i] = sum_w popc(items[i, w] & tids[k, w])``:
+    each input word read once and each output written once, against one POPC
+    per (k, i, w) at its own issue rate and one AND and one ADD at the 32-bit
+    integer rate, whichever pipe takes longer."""
+    n_bytes = 4 * (I * W + K * W + K * I)
+    n_popc = K * I * W
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    popc_ms = n_popc / (POPC_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    alu_ms = 2 * n_popc / (INT32_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    ops_ms = max(popc_ms, alu_ms)
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_popc
+
+
+def phase_kernels(torch, dev):
+    """Each kernel against its plain version on ragged shapes, then timed."""
+    from repro_torch.kernels import bitmap_support as bs
+    from repro_torch.kernels import multi_support as ms
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def words(*shape):
+        return torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev,
+                             generator=gen)
+
+    multi_shapes = [(1, 7, 2), (3, 16, 1), (8, 33, 9), (13, 40, 130), (5, 130, 33),
+                    (64, 24, 17), (17, 131, 4097), (9, 5, 1025), (0, 10, 8), (4, 0, 8),
+                    (4, 10, 0), (1, 100, 15625), (16, 100, 64), (16, 100, 15625),
+                    (64, 100, 15625)]
+    single_shapes = [(7, 2), (16, 1), (33, 9), (130, 33), (53, 300), (257, 4097),
+                     (1, 1), (0, 9), (9, 0), (100, 64), (100, 15625)]
+    for K, I, W in multi_shapes:
+        items, tids = words(I, W), words(K, W)
+        got = ms.multi_extension_supports_cuda(items, tids)
+        if not torch.equal(got, ms.multi_extension_supports_plain(items, tids)):
+            fail(f"multi_extension_supports differs from its plain version at K={K} I={I} W={W}")
+    for I, W in single_shapes:
+        items, tid = words(I, W), words(W)
+        got = bs.extension_supports_cuda(items, tid)
+        if not torch.equal(got, bs.extension_supports_plain(items, tid)):
+            fail(f"extension_supports differs from its plain version at I={I} W={W}")
+    torch.cuda.synchronize()
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def timed(name, kernel, plain, K, I, W, args):
+        out = kernel(*args)
+        err = int((out.long() - plain(*args).long()).abs().max())
+        b_ms, b_by, n_bytes, n_popc = bound(K, I, W, sms)
+        return {"name": name, "shape": {"K": K, "I": I, "W": W}, "max_abs_err": err,
+                "ms": device_ms(torch, lambda: kernel(*args), launches=100),
+                "plain_ms": device_ms(torch, lambda: plain(*args), launches=5, reps=3),
+                # no single PyTorch call ANDs packed words and counts the bits
+                "library_ms": None,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "popc": n_popc}
+
+    timings = []
+    for K, W in ((16, 15625), (16, 64), (1, 15625), (64, 15625)):
+        timings.append(timed("multi_extension_supports", ms.multi_extension_supports_cuda,
+                             ms.multi_extension_supports_plain, K, 100, W,
+                             (words(100, W), words(K, W))))
+    for W in (64, 15625):
+        timings.append(timed("extension_supports", bs.extension_supports_cuda,
+                             bs.extension_supports_plain, 1, 100, W,
+                             (words(100, W), words(W))))
+    if any(t["max_abs_err"] for t in timings):
+        fail(f"a timed kernel disagrees with its plain version: {timings}")
+    emit({"phase": "kernels", "checked_shapes": len(multi_shapes) + len(single_shapes),
+          "bit_equal": True, "timed": timings})
+    return timings
+
+
+def launch_counts():
+    from repro_torch.kernels import ops
+
+    return ops.kernel_launches()
+
+
+def reset_launch_counts():
+    from repro_torch.kernels import bitmap_support as bs
+    from repro_torch.kernels import multi_support as ms
+
+    ms.multi_extension_supports_cuda.launches = 0
+    bs.extension_supports_cuda.launches = 0
+
+
+def phase_main(torch, dev, dense, db_name, gen_s):
+    """The launcher's path once, with the launch counts of exactly that run."""
+    from repro_torch.launch import mine
+
+    print(f"{db_name} |D|={dense.shape[0]} |B|={dense.shape[1]} sup={SUPPORT} P=4 "
+          f"frontier=16 device={dev}  (generated in {gen_s:.2f}s)", flush=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res, wall_s = mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    mine.report(res, wall_s)
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        fail(f"the main path did not launch every kernel: {launches}")
+    if res.launches != launches:
+        fail(f"the run counted {res.launches} launches, its wrappers {launches}")
+    if res.n_fis <= 0 or res.exchange_overflow or res.phase1_overflow.any() \
+            or res.phase4_overflow.any():
+        fail("the main path overflowed or found nothing")
+    emit({"phase": "main", "db": db_name, "n_tx": int(dense.shape[0]),
+          "n_items": int(dense.shape[1]), "support": SUPPORT, "P": 4, "K": 16,
+          "generate_s": gen_s, "n_fis": res.n_fis, "classes": len(res.classes),
+          "replication": res.replication, "exchange_overflow": res.exchange_overflow,
+          "phase1_trips": res.phase1_iters.tolist(), "phase4_trips": res.work_iters.tolist(),
+          "phase_s": res.phase_s, "wall_s": wall_s, "peak_mem_bytes": peak,
+          "launches": launches})
+    return res, launches
+
+
+def phase_profile(torch, dev, dense):
+    """The main path once more under ``torch.profiler``: how much of the wall
+    the card is busy, and with what.  Only the trace's device-side events
+    (kernels, copies, sets) are summed: a CPU operator's device time repeats
+    that of the kernels it launched.  One stream, so they do not overlap."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import mine
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(us for _, us, _ in rows) / 1e3
+    ours = {name: [(us / 1e3, n) for key, us, n in rows if symbol in key]
+            for name, symbol in (("multi_extension_supports", "multi_support_kernel"),
+                                 ("extension_supports", "single_support_kernel"))}
+    top = sorted(rows, key=lambda r: -r[1])[:8]
+    # a trace without device times says nothing of the card: not measured
+    emit({"phase": "profile", "wall_s": wall_s, "device_busy_ms": busy_ms or None,
+          "device_busy_share": busy_ms / 1e3 / wall_s if busy_ms else None,
+          "device_events": sum(n for _, _, n in rows),
+          "kernels_ms": {k: sum(ms for ms, _ in v) for k, v in ours.items()},
+          "kernels_count": {k: sum(n for _, n in v) for k, v in ours.items()},
+          "top_device_ms": [{"name": k[:80], "ms": us / 1e3, "count": n} for k, us, n in top]})
+
+
+def fitable(dense, support, **kw):
+    """The materialised FITable of one mine, after checking what came out."""
+    from repro_torch.launch import mine
+
+    r, _ = mine.mine_dense(dense, support=support, materialize=True, **kw)
+    if r.exchange_overflow or r.phase1_overflow.any() or r.phase4_overflow.any():
+        fail(f"overflow while mining with {kw}")
+    if len(r.fi_dict) != r.n_fis:
+        fail(f"|F|={r.n_fis} but {len(r.fi_dict)} itemsets materialised ({kw})")
+    n_tx = dense.shape[0] // kw["P"] * kw["P"]
+    minsup = int(np.ceil(support * n_tx))
+    if any(not s or not minsup <= v <= n_tx for s, v in r.fi_dict.items()):
+        fail(f"an itemset is empty or its support lies outside [{minsup}, {n_tx}]")
+    return r.fi_dict
+
+
+def phase_exact(dev, dense, n_fis, mid_db, small_db):
+    """One FITable whatever K, P and device, and the brute-force oracle."""
+    from repro_torch.core import eclat
+    from repro_torch.data import ibm_gen
+    from repro_torch.launch import mine
+
+    t0 = time.perf_counter()
+    want = fitable(dense, SUPPORT, P=4, frontier=16, device=dev)
+    if len(want) != n_fis:
+        fail(f"|F| {len(want)} differs from the main run's {n_fis}")
+    n_by = {}
+    for K in (1, 16, 64):
+        for P in (1, 4):
+            got = want if (K, P) == (16, 4) else fitable(dense, SUPPORT, P=P, frontier=K,
+                                                          device=dev)
+            if got != want:
+                fail(f"the FITable at K={K} P={P} differs from K=16 P=4")
+            n_by[f"K{K}_P{P}"] = len(got)
+    sweep_s = time.perf_counter() - t0
+
+    mid = ibm_gen.generate_dense(ibm_gen.params_from_name(mid_db, seed=0))
+    mid_dev = fitable(mid, SUPPORT, P=4, frontier=16, device=dev)
+    if mid_dev != fitable(mid, SUPPORT, P=4, frontier=16, device="cpu"):
+        fail(f"{mid_db}: the FITable on {dev} differs from the CPU's")
+
+    small = ibm_gen.generate_dense(ibm_gen.params_from_name(small_db, seed=0))
+    oracle = eclat.brute_force_fis(small, int(np.ceil(SMALL_SUPPORT * small.shape[0])))
+    if fitable(small, SMALL_SUPPORT, P=4, frontier=16, device=dev) != oracle:
+        fail(f"{small_db}: the FITable on {dev} differs from brute force")
+    cli = mine.main(["--db", small_db, "--support", str(SMALL_SUPPORT), "--device", dev.type])
+    if cli.n_fis != len(oracle):
+        fail(f"the launcher's CLI found |F|={cli.n_fis}, brute force {len(oracle)}")
+    emit({"phase": "exact", "n_fis_by_K_P": n_by, "sweep_s": sweep_s,
+          "mid": {"db": mid_db, "n_fis": len(mid_dev), "equals_cpu": True},
+          "brute_force": {"db": small_db, "support": SMALL_SUPPORT, "n_fis": len(oracle),
+                          "equal": True}})
+
+
+def main() -> None:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from the root of a checkout")
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("CUDA is not available")
+
+    from repro_torch.data import ibm_gen
+    from repro_torch.kernels import build
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "nvidia_smi": smi, "name": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # build from the sources in the checkout, never from a library left behind
+    t0 = time.perf_counter()
+    build.library_path().unlink(missing_ok=True)
+    lib_path = build.build()
+    build.library()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS)})
+
+    timings = phase_kernels(torch, dev)
+
+    t0 = time.perf_counter()
+    dense = ibm_gen.generate_dense(ibm_gen.params_from_name(THESIS_DB, seed=0))
+    res, launches = phase_main(torch, dev, dense, THESIS_DB, time.perf_counter() - t0)
+    phase_exact(dev, dense, res.n_fis, MID_DB, SMALL_DB)
+    phase_profile(torch, dev, dense)
+
+    summary = []
+    for t in timings:
+        k = KERNELS[t["name"]]
+        if tuple(t["shape"].values()) == k["main_shape"]:
+            summary.append({"name": t["name"], "route": "cuda", "source": SOURCE,
+                            "replaces": k["replaces"], "launches": launches[t["name"]],
+                            **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms",
+                                                       "bound_ms", "bound_by",
+                                                       "library_ms", "shape")}})
+    emit({"kernels": summary})
+    print(f"chip_smoke: total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

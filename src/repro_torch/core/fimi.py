@@ -1,0 +1,251 @@
+"""Parallel-FIMI entry point, reservoir variant (thesis §8.5, Method 3).
+
+``run`` executes the four phases over P miners stacked on one device:
+
+  1. all-gathered DB sample, Eclat over it with an in-loop reservoir;
+  2. PBEC partition and LPT (or DB-Repl-Min) schedule, on the host;
+  3. ``all_to_all`` exchange of the transactions each miner's classes need;
+  4. frontier-batched Eclat over each miner's slab, plus the ancestor side
+     channel.
+
+The sample only steers the partition: Phase 4 always mines the whole
+database, so the FITable is exact for any sample and any seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import device as device_mod
+from repro_torch.core import bitmap as bm
+from repro_torch.core import eclat, pbec, phases, sampling, schedule
+from repro_torch.kernels import ops
+
+
+@dataclasses.dataclass(frozen=True)
+class FimiParams:
+    """User-facing knobs (thesis Ch. 8 inputs)."""
+
+    min_support_rel: float = 0.1        # min_support*
+    eps_db: float = 0.05                # ε_D̃   (Thm 6.1)
+    delta_db: float = 0.1               # δ_D̃
+    eps_fs: float = 0.05                # ε_F̃s  (Thm 6.3)
+    delta_fs: float = 0.1               # δ_F̃s
+    rho: float = 0.01                   # smallest-PBEC relative size
+    alpha: float = 0.5                  # Phase-2 granularity
+    n_db_sample: Optional[int] = None   # override |D̃| (else from ε,δ)
+    n_fi_sample: Optional[int] = None   # override |F̃s|
+    scheduler: str = "lpt"              # "lpt" | "repl_min"
+    exchange_capacity: Optional[int] = None  # Phase-3 per-(src,dst) row cap
+    max_classes: int = 512
+    eclat: eclat.EclatConfig = eclat.EclatConfig(max_out=8192, max_stack=2048)
+
+
+@dataclasses.dataclass
+class FimiResult:
+    sample_masks: np.ndarray            # bool [N, I] — F̃s
+    classes: List[pbec.PBEC]
+    assignment: np.ndarray              # int [C]
+    est_loads: np.ndarray               # float [P] — estimated work shares
+    replication: float                  # Phase-3 replication factor
+    exchange_overflow: int
+    phase4: List[eclat.EclatResult]     # per miner
+    ancestor_masks: np.ndarray          # bool [A, I]
+    ancestor_supports: np.ndarray       # int [A] — global supports
+    n_fis: int                          # |F| (classes ∪ frequent ancestors)
+    work_iters: np.ndarray              # int [P] — Phase-4 DFS trips per miner
+    nodes_popped: np.ndarray            # int [P] — Phase-4 DFS nodes mined
+    phase1_iters: np.ndarray            # int [P] — Phase-1 DFS trips per miner
+    phase1_overflow: np.ndarray         # int [P]
+    phase4_overflow: np.ndarray         # int [P]
+    phase_s: Dict[str, float]           # seconds per phase, device-synchronised
+    launches: Dict[str, int]            # kernel launches of this run, by kernel
+    fi_dict: Optional[Dict] = None      # materialized {frozenset: supp}
+
+
+def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+    """A generator on ``device`` for one miner's draws, derived from the run seed."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, stream]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))
+
+
+def run(
+    tx_shards: torch.Tensor,      # int32[P, T, IW]
+    n_items: int,
+    params: FimiParams,
+    *,
+    seed: int = 0,
+    device: str | torch.device | None = None,
+    materialize: bool = False,
+    sample_idx: Optional[torch.Tensor] = None,
+    reservoir_draws: Optional[List[torch.Tensor]] = None,
+) -> FimiResult:
+    """Mine ``tx_shards`` through the four phases; ``device`` defaults to CUDA.
+
+    ``seed`` drives the torch generators of Phase 1 and seeds the numpy
+    generator of the reservoir merge with ``seed & 0x7FFFFFFF``, which is
+    what the reference derives from ``jax.random.PRNGKey(seed)``.
+    ``sample_idx`` (int[P, n_per_miner]) and ``reservoir_draws`` (one int
+    tensor per miner, the j of Algorithm R for the t-th FI at index t-1)
+    replace the Phase-1 draws, so a test can replay the reference's plan.
+    """
+    dev = device_mod.resolve(device)
+    launched_before = ops.kernel_launches()
+    tx_shards = tx_shards.to(dev)
+    P, T, IW = tx_shards.shape
+    coll = phases.LocalCollectives(P)
+    n_tx = P * T
+    abs_minsup = int(np.ceil(params.min_support_rel * n_tx))
+
+    n_db = params.n_db_sample or sampling.db_sample_size(params.eps_db, params.delta_db)
+    n_db = min(n_db, n_tx)
+    per_proc = max(1, n_db // P)
+    n_fs = params.n_fi_sample or sampling.reservoir_sample_size(
+        params.eps_fs, params.delta_fs, params.rho
+    )
+    phase_s: Dict[str, float] = {}
+
+    def lap(name: str, t0: float) -> float:
+        device_mod.synchronize(dev)
+        t1 = time.perf_counter()
+        phase_s[name] = t1 - t0
+        return t1
+
+    t0 = time.perf_counter()
+    # ---------------- Phase 1 ------------------------------------------------
+    out1 = phases.phase1_device(
+        tx_shards, params.min_support_rel, coll=coll, n_items=n_items,
+        n_sample_per_proc=per_proc, reservoir_size=n_fs, eclat_cfg=params.eclat,
+        generators=[_generator(dev, seed, p) for p in range(P)],
+        sample_idx=sample_idx, reservoir_draws=reservoir_draws,
+    )
+    n_samp = out1.sample_db.shape[0]
+    sample_bitdb = bm.rebuild_vertical(out1.sample_db, n_items, n_samp)
+
+    rng = np.random.default_rng(seed & 0x7FFFFFFF)
+    f_counts = out1.fi_count
+    X = sampling.merge_reservoirs(rng, f_counts, n_fs)
+    res_items = bm.to_reference(out1.reservoir)           # uint32[P, R, IW]
+    picked = []
+    for i in range(P):
+        avail = int(min(f_counts[i], n_fs))
+        if X[i] == 0 or avail == 0:
+            continue
+        sel = rng.choice(avail, size=int(min(X[i], avail)), replace=False)
+        picked.append(res_items[i][sel])
+    fs_packed = (
+        np.concatenate(picked, axis=0) if picked
+        else np.zeros((0, bm.n_words(n_items)), np.uint32)
+    )
+    sample_masks = bm.unpack_bool(bm.from_reference(fs_packed), n_items).numpy()
+    sample_masks = sample_masks.reshape(-1, n_items)
+    sample_masks = sample_masks[sample_masks.sum(axis=1) >= 2]
+    t0 = lap("phase1", t0)
+
+    # ---------------- Phase 2 ------------------------------------------------
+    def ext_supports(prefix: np.ndarray) -> np.ndarray:
+        tid = bm.tidlist_of_itemset(sample_bitdb, torch.from_numpy(prefix).to(dev))
+        return bm.extension_supports(sample_bitdb.item_bits, tid).cpu().numpy()  # kernel B3
+
+    classes = pbec.partition(
+        sample_masks, P, params.alpha, ext_supports, n_items,
+        max_classes=params.max_classes,
+    )
+    sizes = np.array([c.est_count for c in classes], dtype=np.float64)
+    if params.scheduler == "repl_min":
+        tids = phases.seed_tidlists(
+            sample_bitdb.item_bits,
+            torch.from_numpy(np.stack([c.prefix for c in classes])).to(dev),
+            sample_bitdb.all_tids(),
+        )
+        profit = schedule.pairwise_shared_transactions(tids)
+        assignment = schedule.db_repl_min(sizes, profit, P).assignment
+    elif params.scheduler == "lpt":
+        assignment = schedule.lpt_schedule(sizes, P)
+    else:
+        raise ValueError(f"unknown scheduler {params.scheduler!r}")
+    est_loads = schedule.loads_of(sizes, assignment, P)
+    t0 = lap("phase2", t0)
+
+    # ---------------- Phase 3 ------------------------------------------------
+    pref_packed, _ = pbec.classes_to_packed(classes)
+    local_valid = torch.ones((P, T), dtype=torch.bool, device=dev)
+    out3 = phases.phase3_exchange(
+        tx_shards, local_valid, pref_packed, assignment, coll=coll,
+        capacity=params.exchange_capacity or T,
+    )
+    t0 = lap("phase3", t0)
+
+    # ---------------- Phase 4 ------------------------------------------------
+    Cmax = max(max(int((assignment == p).sum()) for p in range(P)), 1)
+    seed_prefix = np.zeros((P, Cmax, n_items), dtype=bool)
+    seed_ext = np.zeros((P, Cmax, n_items), dtype=bool)
+    seed_valid = np.zeros((P, Cmax), dtype=bool)
+    for p in range(P):
+        for j, cid in enumerate(np.nonzero(assignment == p)[0]):
+            seed_prefix[p, j] = classes[cid].prefix
+            seed_ext[p, j] = classes[cid].ext
+            seed_valid[p, j] = True
+    ancestor_masks, anc_list = pbec.ancestor_closure(classes, n_items)
+
+    out4 = phases.phase4_mine(
+        out3.slab, out3.slab_valid, tx_shards, local_valid,
+        torch.from_numpy(seed_prefix).to(dev),
+        torch.from_numpy(seed_ext).to(dev),
+        torch.from_numpy(seed_valid).to(dev),
+        torch.from_numpy(ancestor_masks).to(dev),
+        abs_minsup, coll=coll, n_items=n_items, eclat_cfg=params.eclat,
+    )
+    anc_supports = out4.prefix_supports.cpu().numpy()
+    anc_frequent = int((anc_supports[: len(anc_list)] >= abs_minsup).sum())
+    n_fis = sum(r.n_total for r in out4.results) + anc_frequent
+    lap("phase4", t0)
+
+    result = FimiResult(
+        sample_masks=sample_masks,
+        classes=classes,
+        assignment=assignment,
+        est_loads=est_loads,
+        replication=out3.replication,
+        exchange_overflow=out3.overflow,
+        phase4=out4.results,
+        ancestor_masks=ancestor_masks[: len(anc_list)],
+        ancestor_supports=anc_supports[: len(anc_list)],
+        n_fis=n_fis,
+        work_iters=np.array([r.n_iters for r in out4.results]),
+        nodes_popped=np.array([r.n_popped for r in out4.results]),
+        phase1_iters=out1.n_iters,
+        phase1_overflow=out1.overflow,
+        phase4_overflow=np.array([r.stack_overflow for r in out4.results]),
+        phase_s=phase_s,
+        launches={k: n - launched_before[k] for k, n in ops.kernel_launches().items()},
+    )
+    if materialize:
+        result.fi_dict = materialize_fis(result, n_items, abs_minsup)
+    return result
+
+
+def materialize_fis(result: FimiResult, n_items: int, abs_minsup: int) -> Dict:
+    """Collect the distributed result into ``{frozenset: support}``."""
+    out: Dict = {}
+    for r in result.phase4:
+        out.update(eclat.result_fis(r, n_items))
+    for mask, s in zip(result.ancestor_masks, result.ancestor_supports):
+        if s >= abs_minsup:
+            out[frozenset(np.nonzero(mask)[0].tolist())] = int(s)
+    return out
+
+
+def shard_db(db_dense: np.ndarray, P: int, device: str | torch.device | None = None) -> torch.Tensor:
+    """Split a dense bool DB row-wise into P packed shards ``int32[P, T, IW]``
+    on ``device`` (CUDA unless the caller names another); the last
+    ``n_tx mod P`` rows are dropped, as in the reference."""
+    dev = device_mod.resolve(device)
+    n_tx, n_items = db_dense.shape
+    T = n_tx // P
+    rows = torch.from_numpy(np.ascontiguousarray(db_dense[: T * P])).to(dev)
+    return bm.pack_bool(rows.reshape(P, T, n_items))

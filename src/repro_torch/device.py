@@ -1,0 +1,32 @@
+"""Device resolution for the port's entry points.
+
+The card is the default.  The CPU is used only when the caller asks for it;
+without CUDA and without that request, an entry point raises instead of
+falling back.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve(device: str | torch.device | None = None) -> torch.device:
+    """The device to run on: ``cuda`` unless the caller names another.
+
+    Raises ``RuntimeError`` when CUDA is asked for (or defaulted to) and is
+    not available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (--device cpu) to run "
+            "on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

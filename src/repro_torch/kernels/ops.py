@@ -1,0 +1,44 @@
+"""Dispatch of the support sweeps by the tensors' device alone.
+
+A CPU tensor goes to the plain torch version; a CUDA tensor goes to the
+hand-written kernel, which launches or raises.  There is no override and no
+fallback from the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import bitmap_support as _bs
+from repro_torch.kernels import multi_support as _ms
+
+
+def _route(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no support sweep for device {t.device}")
+    return t.device.type
+
+
+def extension_supports(item_bits: torch.Tensor, prefix_tid: torch.Tensor) -> torch.Tensor:
+    """``int32[I]`` supports of prefix ∪ {i} for all items (kernel B3)."""
+    if _route(item_bits) == "cuda":
+        return _bs.extension_supports_cuda(item_bits, prefix_tid)
+    return _bs.extension_supports_plain(item_bits, prefix_tid)
+
+
+def multi_extension_supports(
+    item_bits: torch.Tensor, prefix_tids: torch.Tensor
+) -> torch.Tensor:
+    """``int32[K, I]`` supports of prefix_k ∪ {i} for K prefixes (kernel B1)."""
+    if _route(item_bits) == "cuda":
+        return _ms.multi_extension_supports_cuda(item_bits, prefix_tids)
+    return _ms.multi_extension_supports_plain(item_bits, prefix_tids)
+
+
+def kernel_launches() -> Dict[str, int]:
+    """Launches of each kernel so far in this process (its wrapper's counter)."""
+    return {
+        "multi_extension_supports": _ms.multi_extension_supports_cuda.launches,
+        "extension_supports": _bs.extension_supports_cuda.launches,
+    }

@@ -37,3 +37,9 @@ def small_db():
     minsup = int(np.ceil(0.08 * 512))
     oracle = eclat.brute_force_fis(dense, minsup)
     return dense, db, minsup, oracle
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skipped when CUDA is not available"
+    )

@@ -1,0 +1,184 @@
+"""The port's main path as a whole, against ``repro.core.fimi.run``.
+
+* For every seed and P, the port's FITable ``{frozenset: support}`` equals the
+  reference's: the sample only steers the partition, Phase 4 mines the whole
+  database, so the result is exact whatever the draws.
+* Handed the reference's threefry draws (the Phase-1 sample rows and the
+  Algorithm-R draws of each miner), the port also reproduces the plan: the
+  classes, the assignment, the estimated loads, the replication and the
+  per-miner Phase-4 trips.
+* The port imports nothing of JAX or of ``repro``, and its entry points do
+  not fall back to the CPU.
+"""
+import ast
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import eclat as ref_eclat
+from repro.core import fimi as ref_fimi
+from repro.data.ibm_gen import IBMParams, generate_dense
+from repro_torch.core import eclat, fimi
+from repro_torch.launch import mine
+
+ROOT = Path(__file__).resolve().parents[1]
+N_ITEMS = 20
+SUPPORT = 0.1
+ECLAT = dict(max_out=1 << 13, max_stack=2048, frontier_size=16)
+SAMPLE = dict(n_db_sample=256, n_fi_sample=256)
+N_DRAWS = 1 << 13  # Algorithm-R draws handed to each miner (more than it streams)
+
+
+@pytest.fixture(scope="module")
+def dense():
+    # 600 rows: 300 or 150 per miner, so the per-miner word count is ragged
+    return generate_dense(IBMParams(n_tx=600, n_items=N_ITEMS, n_patterns=10,
+                                    avg_pattern_len=5, avg_tx_len=8, seed=4))
+
+
+_REFERENCE = {}
+
+
+def reference_run(dense, P, seed):
+    """``repro.core.fimi.run`` once per (P, seed) for the whole module."""
+    if (P, seed) not in _REFERENCE:
+        params = ref_fimi.FimiParams(min_support_rel=SUPPORT, **SAMPLE,
+                                     eclat=ref_eclat.EclatConfig(**ECLAT))
+        _REFERENCE[P, seed] = ref_fimi.run(ref_fimi.shard_db(dense, P), N_ITEMS, params,
+                                           jax.random.PRNGKey(seed), materialize=True)
+    return _REFERENCE[P, seed]
+
+
+def port_params():
+    return fimi.FimiParams(min_support_rel=SUPPORT, **SAMPLE, eclat=eclat.EclatConfig(**ECLAT))
+
+
+def reference_draws(seed, P, T):
+    """The reference's Phase-1 draws: for miner p, the sample rows from
+    ``k_samp`` and the Algorithm-R draws j_t ~ U[0, t) from ``k_res``, where
+    ``k_samp, k_res = split(fold_in(PRNGKey(seed), p))`` (``phases.py:151``)."""
+    per_proc = max(1, min(SAMPLE["n_db_sample"], P * T) // P)
+
+    def res_step(k, t):
+        k, sub = jax.random.split(k)
+        return k, jax.random.randint(sub, (), 0, t)
+
+    idx, draws = [], []
+    for p in range(P):
+        k_samp, k_res = jax.random.split(jax.random.fold_in(jax.random.PRNGKey(seed), p))
+        idx.append(np.asarray(jax.random.randint(k_samp, (per_proc,), 0, T)))
+        _, js = jax.lax.scan(res_step, k_res, jnp.arange(1, N_DRAWS + 1, dtype=jnp.int32))
+        draws.append(torch.from_numpy(np.asarray(js).astype(np.int64)))
+    return torch.from_numpy(np.stack(idx).astype(np.int64)), draws
+
+
+def check_fitable(dense, P, seed):
+    want = reference_run(dense, P, seed)
+    got = fimi.run(fimi.shard_db(dense, P, "cpu"), N_ITEMS, port_params(),
+                   seed=seed, device="cpu", materialize=True)
+    assert got.fi_dict == want.fi_dict
+    assert got.n_fis == want.n_fis == len(want.fi_dict)
+    assert got.exchange_overflow == want.exchange_overflow == 0
+    assert not got.phase1_overflow.any() and not got.phase4_overflow.any()
+
+
+def check_plan(dense, P, seed):
+    want = reference_run(dense, P, seed)
+    sample_idx, draws = reference_draws(seed, P, len(dense) // P)
+    got = fimi.run(fimi.shard_db(dense, P, "cpu"), N_ITEMS, port_params(), seed=seed,
+                   device="cpu", materialize=True, sample_idx=sample_idx,
+                   reservoir_draws=draws)
+    np.testing.assert_array_equal(got.sample_masks, want.sample_masks)
+    assert len(got.classes) == len(want.classes)
+    for a, b in zip(got.classes, want.classes):
+        np.testing.assert_array_equal(a.prefix, b.prefix)
+        np.testing.assert_array_equal(a.ext, b.ext)
+        assert (a.est_count, a.seq) == (b.est_count, b.seq)
+    np.testing.assert_array_equal(got.assignment, want.assignment)
+    np.testing.assert_array_equal(got.est_loads, want.est_loads)
+    assert got.replication == want.replication
+    np.testing.assert_array_equal(got.work_iters, np.asarray(want.work_iters))
+    np.testing.assert_array_equal(got.nodes_popped, want.nodes_popped)
+    np.testing.assert_array_equal(got.ancestor_supports, want.ancestor_supports)
+    assert got.fi_dict == want.fi_dict
+
+
+# P = 2 here; test_torch_fimi_p4.py runs P = 4 in another worker, since each P
+# costs the reference its own compilation.
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fitable_equals_reference(dense, seed):
+    check_fitable(dense, 2, seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_plan_equals_reference_with_its_draws(dense, seed):
+    check_plan(dense, 2, seed)
+
+
+def test_launcher_raises_without_cuda(monkeypatch):
+    """With no ``--device`` the launcher asks for CUDA, and raises without it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mine.main(["--db", "T0.1I0.01P5PL3TL4"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fimi.run(torch.zeros((2, 4, 1), dtype=torch.int32), 8, port_params())
+
+
+def test_launcher_imports_neither_jax_nor_repro():
+    code = (
+        "import json, runpy, sys\n"
+        "sys.argv = ['mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
+        " '--support', '0.08']\n"
+        "runpy.run_module('repro_torch.launch.mine', run_name='__main__')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=ROOT, timeout=240)
+    assert done.returncode == 0, done.stderr
+    lines = done.stdout.strip().splitlines()
+    assert "|F| = 3370" in done.stdout
+    # the CPU run launches no kernel, and the launcher prints its own run's counts
+    assert "kernel launches: multi_extension_supports=0 extension_supports=0" in done.stdout
+    assert json.loads(lines[-1]) == []
+
+
+def test_run_counts_its_own_launches(dense, monkeypatch):
+    """``FimiResult.launches`` is what this run launched, not the process total."""
+    from repro_torch.kernels import bitmap_support as bs
+    from repro_torch.kernels import multi_support as ms
+
+    monkeypatch.setattr(ms.multi_extension_supports_cuda, "launches", 40)
+    monkeypatch.setattr(bs.extension_supports_cuda, "launches", 3)
+    res = fimi.run(fimi.shard_db(dense, 2, "cpu"), N_ITEMS, port_params(), device="cpu")
+    assert res.launches == {"multi_extension_supports": 0, "extension_supports": 0}
+    assert ms.multi_extension_supports_cuda.launches == 40
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10 and files[-1].exists()
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+        text = path.read_text()
+        for bad in ("import jax", "from jax", "import repro.", "from repro.", "from repro "):
+            assert bad not in text, f"{path} contains {bad!r}"
