@@ -7,17 +7,28 @@ Run from the root of a checkout, on a machine with one card.  Every phase
 prints one JSON object on a line of its own:
 
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
-  build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``;
+  build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``,
+           and the tensor-core MMA instructions in B2's SASS;
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
-           and the main path's shapes, with its device time, the plain
-           version's, and the least time the card could take (``bound_ms``);
+           and the main path's shapes (B2 to B1's kernel too), with its device
+           time, the plain version's, and the least time the card could take
+           (``bound_ms``); for B2 also one PyTorch call that computes the same
+           product (``library_ms``);
   main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
            support 0.2, P=4, K=16, with the kernels' launch counts in that run;
   exact    the FITable on the card is the same for K in {1, 16, 64} and P in
            {1, 4}, equals the port's own CPU run on a 20k-row database, and
            equals brute force on T1I0.032P20PL6TL10 at 0.08;
-  profile  the main path once more under ``torch.profiler``: the card's busy
-           time and share of the wall, and the kernels' share of that.
+  cluster  the cluster launcher's path (planner, rounds, rebalancing) on the
+           thesis database at P=4, K=16: the same FITable as ``main``;
+  cluster_mxu  the same with ``ClusterParams(use_mxu=True)`` at K=64: Phase 4
+           on B2, one launch per DFS trip, B1 only in the planner;
+  resume   on T20I0.1P50PL10TL40, a run killed after round 0 and resumed
+           from its checkpoint gives the unbroken run's FITable, row for row,
+           with B1 and with B2;
+  profile  the main path and both cluster paths once more under
+           ``torch.profiler``: the card's busy time and share of the wall, and
+           the kernels' share of that.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -27,9 +38,11 @@ The script imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -49,21 +62,27 @@ SMALL_DB, SMALL_SUPPORT = "T1I0.032P20PL6TL10", 0.08  # small enough for brute f
 # compute capability 9.0, 64 32-bit integer adds or bitwise operations and 16
 # population counts; the card's SM count is read from the device, at the
 # H100 SXM's 1.98 GHz maximum SM clock.
+# The tensor cores' dense int8 rate, from the same data sheet: 1,979 T/s.
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCK_HZ = 1.98e9
 INT32_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
+INT8_TENSOR_OPS_PER_S = 1.979e15
 
-# Each kernel at the shape where the main path spends its time in it: B1 in
+# Each kernel at the shape where its path spends its time in it: B1 in
 # Phase 4 on the miners' slabs (K=16, W=15625 words), B3 in Phases 1 and 2 on
-# the 2048-row sample (W=64).
+# the 2048-row sample (W=64), B2 in the cluster executor's Phase 4 at K=64.
 KERNELS = {
     "multi_extension_supports": {
-        "replaces": "src/repro/kernels/multi_support.py:86", "main_shape": (16, 100, 15625)},
+        "replaces": "src/repro/kernels/multi_support.py:86", "main_shape": (16, 100, 15625),
+        "source": "src/repro_torch/kernels/csrc/support.cu"},
     "extension_supports": {
-        "replaces": "src/repro/kernels/bitmap_support.py:67", "main_shape": (1, 100, 64)},
+        "replaces": "src/repro/kernels/bitmap_support.py:67", "main_shape": (1, 100, 64),
+        "source": "src/repro_torch/kernels/csrc/support.cu"},
+    "multi_extension_supports_mxu": {
+        "replaces": "src/repro/kernels/multi_support.py:146", "main_shape": (64, 100, 15625),
+        "source": "src/repro_torch/kernels/csrc/mxu_support.cu"},
 }
-SOURCE = "src/repro_torch/kernels/csrc/support.cu"
 
 
 def fail(msg: str) -> None:
@@ -122,6 +141,41 @@ def bound(K: int, I: int, W: int, sms: int):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_popc
 
 
+def mxu_bound(K: int, I: int, W: int):
+    """Least time for B2's product on the tensor cores: the packed bytes
+    (each input word read once, each output written once) over the memory
+    rate, or the product's 2·K·I·32·W operations on 0/1 values at the dense
+    int8 rate (the data sheet gives no rate for the 1-bit form B2 uses)."""
+    n_bytes = 4 * (I * W + K * W + K * I)
+    n_ops = 2 * K * I * 32 * W
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT8_TENSOR_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_ops
+
+
+def cuobjdump() -> str:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/cuobjdump")
+    if not default.exists():
+        fail("cuobjdump not found: B2's SASS cannot be read")
+    return str(default)
+
+
+def sass_of(lib_path: Path, symbol: str) -> str:
+    """The SASS of the one function in the library whose name holds ``symbol``."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        fail(f"cuobjdump -sass failed: {out.stderr.strip()}")
+    sections = out.stdout.split("Function : ")[1:]
+    found = [sec for sec in sections if symbol in sec.splitlines()[0]]
+    if len(found) != 1:
+        fail(f"{len(found)} functions named like {symbol} in {lib_path.name}")
+    return found[0]
+
+
 def phase_kernels(torch, dev):
     """Each kernel against its plain version on ragged shapes, then timed."""
     from repro_torch.kernels import bitmap_support as bs
@@ -149,6 +203,16 @@ def phase_kernels(torch, dev):
         got = bs.extension_supports_cuda(items, tid)
         if not torch.equal(got, bs.extension_supports_plain(items, tid)):
             fail(f"extension_supports differs from its plain version at I={I} W={W}")
+    mxu_shapes = [(K, I, W) for K in (1, 13, 16, 17, 64) for I in (1, 7, 8, 33, 100, 131)
+                  for W in (1, 2, 33, 1025)] + [(0, 10, 8), (4, 0, 8), (4, 10, 0)]
+    for K, I, W in mxu_shapes:
+        items, tids = words(I, W), words(K, W)
+        got = ms.multi_extension_supports_mxu_cuda(items, tids)
+        if not torch.equal(got, ms.multi_extension_supports_mxu_plain(items, tids)):
+            fail(f"multi_extension_supports_mxu differs from its plain version at "
+                 f"K={K} I={I} W={W}")
+        if not torch.equal(got, ms.multi_extension_supports_cuda(items, tids)):
+            fail(f"multi_extension_supports_mxu differs from B1's kernel at K={K} I={I} W={W}")
     torch.cuda.synchronize()
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -164,6 +228,24 @@ def phase_kernels(torch, dev):
                 "library_ms": None,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "popc": n_popc}
 
+    def timed_mxu(K, I, W):
+        items, tids = words(I, W), words(K, W)
+        out = ms.multi_extension_supports_mxu_cuda(items, tids)
+        err = int((out.long() - ms.multi_extension_supports_mxu_plain(items, tids).long())
+                  .abs().max())
+        b_ms, b_by, n_bytes, n_ops = mxu_bound(K, I, W)
+        lib = library_call(torch, items, tids, out)
+        return {"name": "multi_extension_supports_mxu", "shape": {"K": K, "I": I, "W": W},
+                "max_abs_err": err,
+                "ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_cuda(items, tids),
+                                launches=100),
+                "plain_ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_plain(
+                    items, tids), launches=3, reps=3),
+                "b1_ms": device_ms(torch, lambda: ms.multi_extension_supports_cuda(items, tids),
+                                   launches=100),
+                "library_ms": lib["ms"], "library": lib,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "int8_ops": n_ops}
+
     timings = []
     for K, W in ((16, 15625), (16, 64), (1, 15625), (64, 15625)):
         timings.append(timed("multi_extension_supports", ms.multi_extension_supports_cuda,
@@ -173,11 +255,44 @@ def phase_kernels(torch, dev):
         timings.append(timed("extension_supports", bs.extension_supports_cuda,
                              bs.extension_supports_plain, 1, 100, W,
                              (words(100, W), words(W))))
+    for K in (16, 64):
+        timings.append(timed_mxu(K, 100, 15625))
     if any(t["max_abs_err"] for t in timings):
         fail(f"a timed kernel disagrees with its plain version: {timings}")
-    emit({"phase": "kernels", "checked_shapes": len(multi_shapes) + len(single_shapes),
+    emit({"phase": "kernels",
+          "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes),
           "bit_equal": True, "timed": timings})
     return timings
+
+
+def library_call(torch, items, tids, want):
+    """B2's yardstick: one PyTorch call that computes the same product on
+    operands unpacked beforehand (the unpack is not in its time, and the port
+    never calls it).  ``torch._int_mm`` (int8 in, int32 out) where its shape
+    rules allow, with the rows padded to more than 16 and the columns to a
+    multiple of 8; else a bf16 ``torch.mm`` with float32 output."""
+    from repro_torch.kernels.multi_support import unpack_bits
+
+    K, I = want.shape
+    Kp, Ip = max(32, -(-K // 8) * 8), -(-I // 8) * 8
+    a = torch.zeros((Kp, tids.shape[1] * 32), dtype=torch.int8, device=tids.device)
+    b = torch.zeros((Ip, items.shape[1] * 32), dtype=torch.int8, device=items.device)
+    a[:K] = unpack_bits(tids).to(torch.int8)
+    b[:I] = unpack_bits(items).to(torch.int8)
+    bt = b.t()
+    try:
+        got = torch._int_mm(a, bt)
+        call, fn = "torch._int_mm (int8, int32 out)", lambda: torch._int_mm(a, bt)
+    except RuntimeError:
+        a16, b16 = a.to(torch.bfloat16), bt.to(torch.bfloat16)
+        got = torch.mm(a16, b16, out_dtype=torch.float32)
+        call = "torch.mm (bf16, float32 out)"
+
+        def fn():
+            return torch.mm(a16, b16, out_dtype=torch.float32)
+    err = int((got[:K, :I].double() - want.double()).abs().max())
+    return {"call": call, "shape": [Kp, a.shape[1], Ip], "max_abs_err": err,
+            "unpack_included": False, "ms": device_ms(torch, fn, launches=20)}
 
 
 def launch_counts():
@@ -191,6 +306,7 @@ def reset_launch_counts():
     from repro_torch.kernels import multi_support as ms
 
     ms.multi_extension_supports_cuda.launches = 0
+    ms.multi_extension_supports_mxu_cuda.launches = 0
     bs.extension_supports_cuda.launches = 0
 
 
@@ -208,8 +324,9 @@ def phase_main(torch, dev, dense, db_name, gen_s):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     mine.report(res, wall_s)
-    if dev.type == "cuda" and min(launches.values()) <= 0:
-        fail(f"the main path did not launch every kernel: {launches}")
+    if launches["multi_extension_supports"] <= 0 or launches["extension_supports"] <= 0 \
+            or launches["multi_extension_supports_mxu"]:
+        fail(f"the main path did not launch B1 and B3 alone: {launches}")
     if res.launches != launches:
         fail(f"the run counted {res.launches} launches, its wrappers {launches}")
     if res.n_fis <= 0 or res.exchange_overflow or res.phase1_overflow.any() \
@@ -226,34 +343,46 @@ def phase_main(torch, dev, dense, db_name, gen_s):
 
 
 def phase_profile(torch, dev, dense):
-    """The main path once more under ``torch.profiler``: how much of the wall
-    the card is busy, and with what.  Only the trace's device-side events
-    (kernels, copies, sets) are summed: a CPU operator's device time repeats
-    that of the kernels it launched.  One stream, so they do not overlap."""
+    """The main path, and the cluster path with B1 and with B2, once more
+    under ``torch.profiler``: how much of the wall the card is busy, and
+    with what.  Only the trace's device-side events (kernels, copies, sets)
+    are summed: a CPU operator's device time repeats that of the kernels it
+    launched.  One stream, so they do not overlap."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch import mine
+    from repro_torch.launch import cluster_mine, mine
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev)
+    paths = {
+        "main": lambda: mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev),
+        "cluster": lambda: cluster_mine.run_once(dense, 4, cluster_args(THESIS_DB), dev),
+        "cluster_mxu": lambda: cluster_mine.run_once(
+            dense, 4, cluster_args(THESIS_DB, "--frontier", "64"), dev, use_mxu=True),
+    }
+    symbols = (("multi_extension_supports", "multi_support_kernel"),
+               ("extension_supports", "single_support_kernel"),
+               ("multi_extension_supports_mxu", "mxu_support_kernel"))
+    for path, run in paths.items():
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(us for _, us, _ in rows) / 1e3
-    ours = {name: [(us / 1e3, n) for key, us, n in rows if symbol in key]
-            for name, symbol in (("multi_extension_supports", "multi_support_kernel"),
-                                 ("extension_supports", "single_support_kernel"))}
-    top = sorted(rows, key=lambda r: -r[1])[:8]
-    # a trace without device times says nothing of the card: not measured
-    emit({"phase": "profile", "wall_s": wall_s, "device_busy_ms": busy_ms or None,
-          "device_busy_share": busy_ms / 1e3 / wall_s if busy_ms else None,
-          "device_events": sum(n for _, _, n in rows),
-          "kernels_ms": {k: sum(ms for ms, _ in v) for k, v in ours.items()},
-          "kernels_count": {k: sum(n for _, n in v) for k, v in ours.items()},
-          "top_device_ms": [{"name": k[:80], "ms": us / 1e3, "count": n} for k, us, n in top]})
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        rows = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(us for _, us, _ in rows) / 1e3
+        ours = {name: [(us / 1e3, n) for key, us, n in rows if symbol in key]
+                for name, symbol in symbols}
+        top = sorted(rows, key=lambda r: -r[1])[:8]
+        # a trace without device times says nothing of the card: not measured
+        emit({"phase": "profile", "path": path, "wall_s": wall_s,
+              "device_busy_ms": busy_ms or None,
+              "device_busy_share": busy_ms / 1e3 / wall_s if busy_ms else None,
+              "device_events": sum(n for _, _, n in rows),
+              "kernels_ms": {k: sum(ms for ms, _ in v) for k, v in ours.items()},
+              "kernels_count": {k: sum(n for _, n in v) for k, v in ours.items()},
+              "top_device_ms": [{"name": k[:80], "ms": us / 1e3, "count": n}
+                                for k, us, n in top]})
 
 
 def fitable(dense, support, **kw):
@@ -308,6 +437,112 @@ def phase_exact(dev, dense, n_fis, mid_db, small_db):
           "mid": {"db": mid_db, "n_fis": len(mid_dev), "equals_cpu": True},
           "brute_force": {"db": small_db, "support": SMALL_SUPPORT, "n_fis": len(oracle),
                           "equal": True}})
+    return want, mid
+
+
+def cluster_args(db_name, *extra):
+    from repro_torch.launch import cluster_mine
+
+    return cluster_mine.build_parser().parse_args(
+        ["--db", db_name, "--support", str(SUPPORT), "-P", "4", *extra])
+
+
+def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
+    """The cluster launcher's path once (planner, rounds, rebalancing), with
+    the launch counts of exactly that run; with ``use_mxu`` Phase 4 runs on
+    B2 at K=64, and B1 only in the planner, whose launches a second planner
+    run with the same seed counts."""
+    from repro_torch import cluster
+    from repro_torch.core import fimi
+    from repro_torch.launch import cluster_mine
+
+    name = "cluster_mxu" if use_mxu else "cluster"
+    K = 64 if use_mxu else 16
+    args = cluster_args(db_name, "--frontier", str(K))
+    print(f"{name}: {db_name} sup={SUPPORT} P=4 K={K} rebalance=True "
+          f"scheduler={args.scheduler} use_mxu={use_mxu}", flush=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    res, wall_s = cluster_mine.run_once(dense, 4, args, dev, use_mxu=use_mxu)
+    launches = launch_counts()
+    cluster_mine.report(res, wall_s)
+    rep = res.report
+    if res.launches != launches:
+        fail(f"{name}: the run counted {res.launches} launches, its wrappers {launches}")
+    if rep.exchange_overflow or rep.mine_overflow:
+        fail(f"{name}: overflow")
+    got = res.table.to_dict()
+    if len(got) != res.table.n_fis or got != want:
+        fail(f"{name}: the FITable ({res.table.n_fis}) differs from main's ({len(want)})")
+    trips = int(rep.observed_loads.sum())
+    planner_b1 = None
+    if use_mxu:
+        reset_launch_counts()
+        params = cluster_mine.cluster_params(args, dense.shape[0], use_mxu=True)
+        cluster.plan(fimi.shard_db(dense, 4, dev), dense.shape[1], params.planner,
+                     seed=args.seed, device=dev)
+        planner_b1 = launch_counts()["multi_extension_supports"]
+        if launches["multi_extension_supports_mxu"] != trips:
+            fail(f"{name}: B2 launched {launches['multi_extension_supports_mxu']} times, "
+                 f"Phase 4 took {trips} trips")
+        if launches["multi_extension_supports"] != planner_b1:
+            fail(f"{name}: B1 launched {launches['multi_extension_supports']} times, "
+                 f"the planner alone {planner_b1}")
+    elif launches["multi_extension_supports_mxu"] or launches["multi_extension_supports"] <= 0:
+        fail(f"{name}: B1 must carry the sweeps, not B2: {launches}")
+    if launches["extension_supports"] <= 0:
+        fail(f"{name}: the planner did not launch B3: {launches}")
+    emit({"phase": name, "db": db_name, "support": SUPPORT, "P": 4, "K": K,
+          "use_mxu": use_mxu, "n_fis": res.table.n_fis, "equals_main": True,
+          "wall_s": wall_s, "phase_ms": rep.phase_ms, "rounds": rep.n_rounds,
+          "round_trips": [r.work_iters.tolist() for r in rep.rounds],
+          "round_mine_ms": [r.mine_ms for r in rep.rounds],
+          "donations": len(rep.donations), "imbalance": rep.imbalance,
+          "makespan_trips": rep.makespan_trips,
+          "estimation_error": rep.estimation_error(),
+          "scheduler": res.plan.scheduler_used, "classes": len(res.plan.classes),
+          "phase4_trips": trips, "planner_b1_launches": planner_b1, "launches": launches})
+    return launches
+
+
+def phase_resume(dev, mid_db, mid):
+    """Kill after round 0 and resume from the checkpoint: the unbroken run's
+    FITable row for row, once through the launcher's command line with B1,
+    once with ``use_mxu=True`` (B2), which the command line has no flag for."""
+    from repro_torch.launch import cluster_mine
+
+    out = {}
+    for use_mxu in (False, True):
+        with tempfile.TemporaryDirectory() as ck:
+            flags = ["--checkpoint", ck]
+            if use_mxu:
+                def run(*extra):
+                    return cluster_mine.run_once(mid, 4, cluster_args(mid_db, *flags, *extra),
+                                                 dev, use_mxu=True)[0]
+            else:
+                def run(*extra):
+                    argv = ["--db", mid_db, "--support", str(SUPPORT), "-P", "4",
+                            "--device", dev.type, *flags, *extra]
+                    return cluster_mine.main(argv)
+            whole = cluster_mine.run_once(mid, 4, cluster_args(mid_db), dev, use_mxu=use_mxu)[0]
+            try:
+                run("--kill-after-round", "0")
+                fail("the run with --kill-after-round 0 was not killed")
+            except SystemExit as e:
+                if e.code not in (0, None):
+                    raise
+            resumed = run("--resume")
+            if not (np.array_equal(resumed.table.masks, whole.table.masks)
+                    and np.array_equal(resumed.table.supports, whole.table.supports)):
+                fail(f"{mid_db}: the resumed FITable differs from the unbroken run's "
+                     f"(use_mxu={use_mxu})")
+            if whole.report.n_rounds < 2 or resumed.report.n_rounds != whole.report.n_rounds:
+                fail(f"{mid_db}: {whole.report.n_rounds} rounds unbroken, "
+                     f"{resumed.report.n_rounds} resumed (use_mxu={use_mxu})")
+            out["mxu" if use_mxu else "b1"] = {
+                "n_fis": whole.table.n_fis, "rounds": whole.report.n_rounds,
+                "resumed_launches": resumed.launches, "bit_exact": True}
+    emit({"phase": "resume", "db": mid_db, "support": SUPPORT, "P": 4, **out})
 
 
 def main() -> None:
@@ -335,22 +570,32 @@ def main() -> None:
     build.library_path().unlink(missing_ok=True)
     lib_path = build.build()
     build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS)})
+    build_s = time.perf_counter() - t0
+    sass = sass_of(lib_path, "mxu_support_kernel")
+    mma = {op: sass.count(op) for op in ("IMMA", "BMMA")}
+    if not sum(mma.values()):
+        fail("B2's SASS holds no tensor-core MMA instruction")
+    emit({"phase": "build", "seconds": build_s, "sources": [s.name for s in build.SOURCES],
+          "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS),
+          "b2_sass_mma": mma})
 
     timings = phase_kernels(torch, dev)
 
     t0 = time.perf_counter()
     dense = ibm_gen.generate_dense(ibm_gen.params_from_name(THESIS_DB, seed=0))
     res, launches = phase_main(torch, dev, dense, THESIS_DB, time.perf_counter() - t0)
-    phase_exact(dev, dense, res.n_fis, MID_DB, SMALL_DB)
+    want, mid = phase_exact(dev, dense, res.n_fis, MID_DB, SMALL_DB)
+    phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=False)
+    launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
+    launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
+    phase_resume(dev, MID_DB, mid)
     phase_profile(torch, dev, dense)
 
     summary = []
     for t in timings:
         k = KERNELS[t["name"]]
         if tuple(t["shape"].values()) == k["main_shape"]:
-            summary.append({"name": t["name"], "route": "cuda", "source": SOURCE,
+            summary.append({"name": t["name"], "route": "cuda", "source": k["source"],
                             "replaces": k["replaces"], "launches": launches[t["name"]],
                             **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms",
                                                        "bound_ms", "bound_by",

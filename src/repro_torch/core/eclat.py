@@ -17,7 +17,7 @@ dropped, exactly as in the reference.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,6 +25,9 @@ import torch
 from repro_torch.core import bitmap as bm
 
 INT32_MAX = torch.iinfo(torch.int32).max
+
+# (item_bits int32[I, W], prefix_tids int32[K, W]) -> int32[K, I] supports
+MultiSupportFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +68,7 @@ def mine_seeded(
     n_items: int,
     generator: torch.Generator | None = None,
     reservoir_draws: torch.Tensor | None = None,
+    multi_support_fn: Optional[MultiSupportFn] = None,
 ) -> EclatResult:
     """Mine all FIs in the union of the seed PBECs ``[prefix_k | ext_k]``.
 
@@ -75,7 +79,13 @@ def mine_seeded(
     ``j ~ U[0, t)`` for the t-th emitted FI from ``generator``, or takes
     ``reservoir_draws[t - 1]`` when given, so a test can replay the
     reference's draws.
+
+    ``multi_support_fn`` computes each trip's fused ``[F, I]`` supports; it
+    defaults to :func:`repro_torch.kernels.ops.multi_extension_supports`
+    (kernel B1 on the card).
     """
+    if multi_support_fn is None:
+        multi_support_fn = bm.multi_extension_supports
     dev = item_bits.device
     I = n_items
     IW = bm.n_words(I)
@@ -119,8 +129,8 @@ def mine_seeded(
         # emit and push nothing.
         ext_bool = bm.unpack_bool(stk_ext[idx], I) & active[:, None]   # [F, I]
 
-        # --- fused multi-prefix support count (kernel B1 on the card) -----
-        supports = bm.multi_extension_supports(item_bits, node_tid)    # [F, I]
+        # --- fused multi-prefix support count (kernel B1 or B2 on the card)
+        supports = multi_support_fn(item_bits, node_tid)               # [F, I]
         freq = ext_bool & (supports >= min_support)
         nf = freq.sum(dim=-1)                                          # [F]
 
@@ -219,6 +229,7 @@ def mine_all(
     *,
     config: EclatConfig = EclatConfig(),
     generator: torch.Generator | None = None,
+    reservoir_draws: torch.Tensor | None = None,
 ) -> EclatResult:
     """Mine all FIs of a database (the root PBEC [∅ | B])."""
     I = db.n_items
@@ -233,6 +244,7 @@ def mine_all(
         config=config,
         n_items=I,
         generator=generator,
+        reservoir_draws=reservoir_draws,
     )
 
 

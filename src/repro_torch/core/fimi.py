@@ -67,12 +67,6 @@ class FimiResult:
     fi_dict: Optional[Dict] = None      # materialized {frozenset: supp}
 
 
-def _generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
-    """A generator on ``device`` for one miner's draws, derived from the run seed."""
-    state = np.random.SeedSequence([seed & 0xFFFFFFFF, stream]).generate_state(1)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
-
-
 def run(
     tx_shards: torch.Tensor,      # int32[P, T, IW]
     n_items: int,
@@ -120,7 +114,7 @@ def run(
     out1 = phases.phase1_device(
         tx_shards, params.min_support_rel, coll=coll, n_items=n_items,
         n_sample_per_proc=per_proc, reservoir_size=n_fs, eclat_cfg=params.eclat,
-        generators=[_generator(dev, seed, p) for p in range(P)],
+        generators=[device_mod.generator(dev, seed, p) for p in range(P)],
         sample_idx=sample_idx, reservoir_draws=reservoir_draws,
     )
     n_samp = out1.sample_db.shape[0]

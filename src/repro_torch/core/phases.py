@@ -246,12 +246,14 @@ def phase4_mine(
     coll: LocalCollectives,
     n_items: int,
     eclat_cfg: eclat.EclatConfig,
+    multi_support_fn: Optional[eclat.MultiSupportFn] = None,
 ) -> Phase4Out:
     """Alg. 19 (Phase-4-Compute-FI) with Eclat (Alg. 22):
 
     * lines 2–5: each miner counts the ancestor prefixes on its own D_p, and
       the psum makes them global;
-    * line 6: Exec-Eclat over each miner's classes on its slab D'_p.
+    * line 6: Exec-Eclat over each miner's classes on its slab D'_p, its
+      sweeps through ``multi_support_fn`` (default: kernel B1 on the card).
     """
     P = tx_shards.shape[0]
     local_anc = []
@@ -267,5 +269,6 @@ def phase4_mine(
         results.append(eclat.mine_seeded(
             item_bits, seed_prefix[p], seed_ext[p], tid, seed_valid[p],
             min_support, config=eclat_cfg, n_items=n_items,
+            multi_support_fn=multi_support_fn,
         ))
     return Phase4Out(results=results, prefix_supports=prefix_supports)

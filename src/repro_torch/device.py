@@ -6,6 +6,7 @@ falling back.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -30,3 +31,10 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+    """A generator on ``device`` for one stream of a run's draws, derived from
+    the run seed (one stream per miner, or per use)."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, stream]).generate_state(1)[0]
+    return torch.Generator(device=device).manual_seed(int(state))

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-The ``.cu`` sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``
-into a shared library with a plain C interface, loaded with ``ctypes``.  The
-build happens at first use, into ``build/repro_torch/`` at the root of the
+The ``.cu`` sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``,
+one process per source, all started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.  The build happens
+at first use, into ``build/repro_torch/`` at the root of the
 checkout (git-ignored), under a name keyed by a hash of the sources and the
 flags, so a changed source is rebuilt and an unchanged one is reused.
 Nothing here runs at import time: the CPU tests import every module.
@@ -19,18 +20,19 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "support.cu",)
+SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C entry points of support.cu: argument types of each (all return int).
+# C entry points of the sources: argument types of each (all return int).
 SIGNATURES = {
     "multi_extension_supports": (_P, _P, _P, _I, _I, _I, _I, _P),
     "extension_supports": (_P, _P, _P, _I, _I, _P),
+    "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 
@@ -53,25 +55,30 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfimi_support_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds) -> None:
+    """Run the commands side by side; raise with the output of any that fails."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [(p.communicate()[0], p.returncode) for p in procs]
+    for out, code in outs:
+        if code != 0:
+            raise RuntimeError(f"nvcc failed ({code}):\n{out}")
+
+
 def build() -> Path:
     """Compile the sources unless a library for them exists; return its path."""
     target = library_path()
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, SOURCES)]
-        done = subprocess.run(cmd, capture_output=True, text=True)
-        if done.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({done.returncode}):\n{done.stdout}{done.stderr}"
-            )
-        os.replace(tmp, target)  # atomic: a concurrent build never sees half a file
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in SOURCES]
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+              for o, src in zip(objs, SOURCES)])
+        lib = Path(tmp) / target.name
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]])
+        os.replace(lib, target)  # atomic: a concurrent build never sees half a file
     return target
 
 

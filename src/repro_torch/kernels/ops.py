@@ -28,11 +28,21 @@ def extension_supports(item_bits: torch.Tensor, prefix_tid: torch.Tensor) -> tor
 
 
 def multi_extension_supports(
-    item_bits: torch.Tensor, prefix_tids: torch.Tensor
+    item_bits: torch.Tensor, prefix_tids: torch.Tensor, *, use_mxu: bool = False
 ) -> torch.Tensor:
-    """``int32[K, I]`` supports of prefix_k ∪ {i} for K prefixes (kernel B1)."""
+    """``int32[K, I]`` supports of prefix_k ∪ {i} for K prefixes.
+
+    The frontier-batched Eclat plug-in (``multi_support_fn``).  ``use_mxu``
+    chooses between two kernels, B2 on the tensor cores or B1 on the integer
+    pipes, and on the CPU between their plain versions; it never chooses a
+    plain version on the card.
+    """
     if _route(item_bits) == "cuda":
+        if use_mxu:
+            return _ms.multi_extension_supports_mxu_cuda(item_bits, prefix_tids)
         return _ms.multi_extension_supports_cuda(item_bits, prefix_tids)
+    if use_mxu:
+        return _ms.multi_extension_supports_mxu_plain(item_bits, prefix_tids)
     return _ms.multi_extension_supports_plain(item_bits, prefix_tids)
 
 
@@ -41,4 +51,5 @@ def kernel_launches() -> Dict[str, int]:
     return {
         "multi_extension_supports": _ms.multi_extension_supports_cuda.launches,
         "extension_supports": _bs.extension_supports_cuda.launches,
+        "multi_extension_supports_mxu": _ms.multi_extension_supports_mxu_cuda.launches,
     }

@@ -1,0 +1,212 @@
+"""Distributed mining launcher of the port: the cluster executor end to end.
+
+Runs planner → exchange → miner rounds → rebalance over P miners on one
+device, on the card unless ``--device cpu`` is given (without CUDA and
+without that flag it raises), and reports:
+
+  * per-phase time (plan / exchange / mine / merge),
+  * load imbalance (observed DFS trips, max/mean) and the planner's
+    estimation error (predicted vs observed load shares),
+  * a speedup-vs-miners curve (``--curve 1,2,4``) in modeled makespan
+    (Σ_r max_p trips, the barrier-aware metric) and wall time,
+  * exact parity against the port's single-miner ``fimi.run`` (``--parity``;
+    exits 1 on any itemset or support mismatch),
+  * fault tolerance: ``--checkpoint DIR`` persists the inter-round state
+    after every round; ``--resume`` restarts from the latest checkpoint,
+    bit-exact with an unbroken run; ``--kill-after-round R`` exits 0 right
+    after round R's checkpoint,
+  * the kernel launches of the run.
+
+  python -m repro_torch.launch.cluster_mine --db T500I0.1P50PL10TL40 --support 0.2 -P 4
+  python -m repro_torch.launch.cluster_mine --db T1I0.032P20PL6TL10 --support 0.08 \\
+      --device cpu --parity [--checkpoint DIR [--resume | --kill-after-round R]]
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from typing import Optional, Sequence
+
+import numpy as np
+
+from repro_torch import cluster
+from repro_torch import device as device_mod
+from repro_torch.core import eclat, fimi
+from repro_torch.data.ibm_gen import generate_dense, params_from_name
+
+
+def _skew_plan(plan: cluster.MiningPlan) -> cluster.MiningPlan:
+    """Fault injection (``--force-skew``): pile every class onto miner 0.
+
+    The estimated loads move with the assignment, so the skew is planned and
+    predicted: pure imbalance, zero estimation error.
+    """
+    est_loads = np.zeros_like(plan.est_loads)
+    if est_loads.shape[0]:
+        est_loads[0] = float(np.sum(plan.est_loads))
+    return dataclasses.replace(plan, assignment=np.zeros_like(plan.assignment),
+                               est_loads=est_loads)
+
+
+def cluster_params(args, n_tx: int, use_mxu: bool = False) -> cluster.ClusterParams:
+    """The launcher's executor settings (the reference launcher's values)."""
+    return cluster.ClusterParams(
+        planner=cluster.PlannerParams(
+            min_support_rel=args.support, alpha=args.alpha, scheduler=args.scheduler,
+            n_db_sample=min(2048, n_tx), n_fi_sample=1024,
+        ),
+        eclat=eclat.EclatConfig(max_out=1 << 15, max_stack=8192, frontier_size=args.frontier),
+        chunk=args.chunk or None,
+        # --force-skew also pins rebalancing off: the injected skew must
+        # survive to the report
+        rebalance=not (args.no_rebalance or args.force_skew),
+        skew_threshold=args.skew,
+        use_mxu=use_mxu,
+    )
+
+
+def run_once(dense: np.ndarray, P: int, args, dev, use_mxu: bool = False):
+    """One executor run at P miners; returns ``(result, wall seconds)``.
+
+    ``use_mxu`` is ``ClusterParams.use_mxu`` (Phase 4 on kernel B2); the
+    command line has no flag for it, as the JAX launcher has none.
+    """
+    params = cluster_params(args, dense.shape[0], use_mxu)
+    t0 = time.perf_counter()
+    shards = fimi.shard_db(dense, P, dev)
+    plan = None
+    if args.force_skew:
+        plan = _skew_plan(cluster.plan(shards, dense.shape[1], params.planner,
+                                       seed=args.seed, device=dev))
+        plan_ms = (time.perf_counter() - t0) * 1e3
+    res = cluster.execute(
+        shards, dense.shape[1], params, seed=args.seed, device=dev, plan=plan,
+        checkpoint_dir=args.checkpoint or None, resume=args.resume,
+        round_hook=_kill_hook(args.kill_after_round),
+    )
+    if plan is not None:  # planned outside execute: charge it where it ran
+        res.report.phase_ms["plan"] = plan_ms
+    device_mod.synchronize(dev)
+    return res, time.perf_counter() - t0
+
+
+def _kill_hook(kill_at: int):
+    """Round hook that simulates a death mid-run."""
+    if kill_at < 0:
+        return None
+
+    def hook(r: int) -> None:
+        if r >= kill_at:
+            print(f"KILLED after round {r} (checkpoint saved) — "
+                  f"rerun with --resume to finish", flush=True)
+            sys.exit(0)
+
+    return hook
+
+
+def report(res: cluster.ClusterResult, wall_s: float) -> None:
+    rep, plan = res.report, res.plan
+    print(f"|F| = {res.table.n_fis}  in {wall_s:.2f}s  backend={rep.backend}  "
+          f"rounds={rep.n_rounds}  scheduler={plan.scheduler_used}")
+    print("per-phase ms: " + "  ".join(f"{k}={v:.0f}" for k, v in rep.phase_ms.items()))
+    replication = np.mean([r.replication for r in rep.rounds]) if rep.rounds else 0.0
+    print(f"classes={len(plan.classes)}  "
+          f"volume lpt={plan.lpt_volume:.0f} repl_min={plan.repl_volume:.0f}  "
+          f"replication/round={replication:.2f}")
+    print(f"load: observed trips={rep.observed_loads.astype(int).tolist()}  "
+          f"imbalance={rep.imbalance:.2f}  "
+          f"estimation_error={rep.estimation_error():.3f}  "
+          f"donations={len(rep.donations)}")
+    print("kernel launches: " + " ".join(f"{k}={n}" for k, n in res.launches.items()),
+          flush=True)
+
+
+def parity(res: cluster.ClusterResult, dense: np.ndarray, args, dev) -> bool:
+    """The FITable against the port's single-miner ``fimi.run``."""
+    fp = fimi.FimiParams(
+        min_support_rel=args.support, n_db_sample=min(2048, dense.shape[0]),
+        n_fi_sample=1024,
+        eclat=eclat.EclatConfig(max_out=1 << 15, max_stack=8192, frontier_size=args.frontier),
+    )
+    ref = fimi.run(fimi.shard_db(dense, 1, dev), dense.shape[1], fp, seed=args.seed,
+                   device=dev, materialize=True)
+    got = res.table.to_dict()
+    if got != ref.fi_dict:
+        only_got = set(got) - set(ref.fi_dict)
+        only_ref = set(ref.fi_dict) - set(got)
+        diff = {k for k in set(got) & set(ref.fi_dict) if got[k] != ref.fi_dict[k]}
+        print(f"PARITY FAIL: +{len(only_got)} -{len(only_ref)} "
+              f"support-mismatch={len(diff)}", flush=True)
+        return False
+    print(f"parity vs single-device fimi.run: OK "
+          f"({len(got)} itemsets, bit-exact supports)", flush=True)
+    return True
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--db", default="T2I0.048P50PL10TL16")
+    ap.add_argument("--support", type=float, default=0.1)
+    ap.add_argument("-P", type=int, default=4)
+    ap.add_argument("--scheduler", default="auto", choices=["auto", "lpt", "repl_min"])
+    ap.add_argument("--alpha", type=float, default=0.5)
+    ap.add_argument("--frontier", type=int, default=16,
+                    help="DFS nodes mined per trip (K)")
+    ap.add_argument("--chunk", type=int, default=0,
+                    help="classes per miner per round (0 = auto)")
+    ap.add_argument("--skew", type=float, default=1.25,
+                    help="rebalance when remaining max/mean exceeds this")
+    ap.add_argument("--no-rebalance", action="store_true")
+    ap.add_argument("--force-skew", action="store_true",
+                    help="fault injection: assign every class to miner 0 and "
+                         "disable rebalancing")
+    ap.add_argument("--curve", default="",
+                    help="comma-separated miner counts for a speedup curve")
+    ap.add_argument("--parity", action="store_true",
+                    help="verify exact FI parity vs single-miner fimi.run")
+    ap.add_argument("--checkpoint", default="",
+                    help="persist inter-round state to this dir after every round")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart from the latest checkpoint in --checkpoint")
+    ap.add_argument("--kill-after-round", type=int, default=-1, metavar="R",
+                    help="simulate a crash: exit 0 right after round R's checkpoint")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    return ap
+
+
+def main(argv: Optional[Sequence[str]] = None) -> cluster.ClusterResult:
+    args = build_parser().parse_args(argv)
+    dev = device_mod.resolve(args.device)
+
+    t0 = time.perf_counter()
+    dense = generate_dense(params_from_name(args.db, seed=args.seed))
+    n_tx, n_items = dense.shape
+    print(f"{args.db} |D|={n_tx} |B|={n_items} sup={args.support} P={args.P} "
+          f"device={dev} rebalance={not args.no_rebalance} scheduler={args.scheduler}  "
+          f"(generated in {time.perf_counter() - t0:.2f}s)", flush=True)
+
+    res, wall = run_once(dense, args.P, args, dev)
+    report(res, wall)
+
+    if args.curve:
+        counts = [int(c) for c in args.curve.split(",") if c]
+        base = None
+        print("speedup curve (modeled makespan = sum of per-round max trips):")
+        for Pc in counts:
+            r, w = run_once(dense, Pc, args, dev)
+            mk = r.report.makespan_trips
+            base = mk if base is None else base
+            print(f"  P={Pc:<3d} makespan={mk:>8.0f} trips  "
+                  f"speedup={base / max(mk, 1):.2f}x  wall={w:.2f}s  "
+                  f"imbalance={r.report.imbalance:.2f}")
+
+    if args.parity and not parity(res, dense, args, dev):
+        sys.exit(1)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -138,6 +138,7 @@ def test_launcher_imports_neither_jax_nor_repro():
         "sys.argv = ['mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
         " '--support', '0.08']\n"
         "runpy.run_module('repro_torch.launch.mine', run_name='__main__')\n"
+        "import repro_torch.cluster, repro_torch.launch.cluster_mine, repro_torch.store.checksum\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -160,7 +161,8 @@ def test_run_counts_its_own_launches(dense, monkeypatch):
     monkeypatch.setattr(ms.multi_extension_supports_cuda, "launches", 40)
     monkeypatch.setattr(bs.extension_supports_cuda, "launches", 3)
     res = fimi.run(fimi.shard_db(dense, 2, "cpu"), N_ITEMS, port_params(), device="cpu")
-    assert res.launches == {"multi_extension_supports": 0, "extension_supports": 0}
+    assert res.launches == {"multi_extension_supports": 0, "extension_supports": 0,
+                            "multi_extension_supports_mxu": 0}
     assert ms.multi_extension_supports_cuda.launches == 40
 
 

@@ -1,4 +1,4 @@
-"""The port's support sweeps (kernels B1 and B3) against the JAX package.
+"""The port's support sweeps (kernels B1, B2 and B3) against the JAX package.
 
 On the CPU the plain torch versions are held bit-equal to the Pallas kernels
 run in interpret mode, the way ``tests/test_kernels.py`` runs them.  The CUDA
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitmap as ref_bm
 from repro.kernels import bitmap_support as ref_bs
 from repro.kernels import multi_support as ref_ms
 from repro_torch.core import bitmap as bm
@@ -30,6 +31,10 @@ MULTI_SHAPES = [
     (64, 24, 17),
 ]
 SINGLE_SHAPES = [(7, 2), (16, 1), (33, 9), (130, 33), (53, 300)]
+# (n_tx, n_items, K) of tests/test_kernels.py's matrix-unit sweep, run with
+# its blocks (block_k=8, block_i=16, block_w=8)
+MXU_DB_SHAPES = [(33, 7, 1), (128, 16, 3), (257, 64, 8), (300, 40, 13), (1024, 130, 5),
+                 (512, 24, 64)]
 
 
 def _words(shape, seed):
@@ -61,9 +66,63 @@ def test_single_plain_matches_pallas_interpret(i, w):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
+def _db_and_tids(n_tx, n_items, k, seed):
+    """A random database's vertical bitmap and the tidlists of K random small
+    itemsets (∅ included), as ``tests/test_kernels.py`` builds them."""
+    rng = np.random.default_rng(seed)
+    db = ref_bm.BitmapDB.from_dense(jnp.asarray(rng.random((n_tx, n_items)) < 0.3))
+    tids = []
+    for _ in range(k):
+        mask = np.zeros(n_items, bool)
+        mask[rng.choice(n_items, size=int(rng.integers(0, 3)), replace=False)] = True
+        tids.append(np.asarray(ref_bm.tidlist_of_itemset(db, jnp.asarray(mask))))
+    return np.asarray(db.item_bits), np.stack(tids)
+
+
+@pytest.mark.parametrize("n_tx,n_items,k", MXU_DB_SHAPES)
+def test_mxu_plain_matches_pallas_interpret_on_databases(n_tx, n_items, k):
+    items, tids = _db_and_tids(n_tx, n_items, k, seed=n_tx + k)
+    want = np.asarray(
+        ref_ms.multi_extension_supports_mxu_pallas(
+            jnp.asarray(items), jnp.asarray(tids), block_k=8, block_i=16, block_w=8,
+            interpret=True,
+        )
+    )
+    got = ms.multi_extension_supports_mxu_plain(bm.from_reference(items), bm.from_reference(tids))
+    assert got.dtype == torch.int32 and got.shape == (k, n_items)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,i,w", MULTI_SHAPES)
+def test_mxu_plain_matches_pallas_interpret_on_random_words(k, i, w):
+    """Every bit equally likely, the sign bit included; the matrix-unit
+    kernel with its default blocks."""
+    items, tids = _words((i, w), seed=i * w + 7), _words((k, w), seed=k + w + 7)
+    want = np.asarray(
+        ref_ms.multi_extension_supports_mxu_pallas(
+            jnp.asarray(items), jnp.asarray(tids), interpret=True
+        )
+    )
+    got = ms.multi_extension_supports_mxu_plain(bm.from_reference(items), bm.from_reference(tids))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        got.numpy(),
+        ms.multi_extension_supports_plain(bm.from_reference(items),
+                                          bm.from_reference(tids)).numpy(),
+    )
+
+
+@pytest.mark.parametrize("k,i,w", [(0, 10, 8), (4, 0, 8), (4, 10, 0)])
+def test_mxu_plain_on_empty_axes(k, i, w):
+    items, tids = bm.from_reference(_words((i, w), 3)), bm.from_reference(_words((k, w), 4))
+    got = ms.multi_extension_supports_mxu_plain(items, tids)
+    assert got.dtype == torch.int32 and got.shape == (k, i)
+    assert torch.equal(got, ms.multi_extension_supports_plain(items, tids))
+
+
 def test_ops_routes_cpu_tensors_to_plain_versions():
     items, tids = bm.from_reference(_words((9, 5), 1)), bm.from_reference(_words((4, 5), 2))
-    before = (ms.multi_extension_supports_cuda.launches, bs.extension_supports_cuda.launches)
+    before = ops.kernel_launches()
     np.testing.assert_array_equal(
         ops.multi_extension_supports(items, tids).numpy(),
         ms.multi_extension_supports_plain(items, tids).numpy(),
@@ -72,15 +131,34 @@ def test_ops_routes_cpu_tensors_to_plain_versions():
         ops.extension_supports(items, tids[0]).numpy(),
         bs.extension_supports_plain(items, tids[0]).numpy(),
     )
-    after = (ms.multi_extension_supports_cuda.launches, bs.extension_supports_cuda.launches)
-    assert after == before
+    assert ops.kernel_launches() == before
+
+
+def test_ops_routes_use_mxu_on_cpu_tensors_to_the_matrix_product(monkeypatch):
+    items, tids = bm.from_reference(_words((9, 5), 1)), bm.from_reference(_words((4, 5), 2))
+    calls = []
+    mxu_plain = ms.multi_extension_supports_mxu_plain
+
+    def plain(a, b):
+        calls.append((a, b))
+        return mxu_plain(a, b)
+
+    monkeypatch.setattr(ms, "multi_extension_supports_mxu_plain", plain)
+    before = ops.kernel_launches()
+    got = ops.multi_extension_supports(items, tids, use_mxu=True)
+    assert len(calls) == 1 and calls[0][0] is items and calls[0][1] is tids
+    np.testing.assert_array_equal(
+        got.numpy(), ms.multi_extension_supports_plain(items, tids).numpy()
+    )
+    assert ops.kernel_launches() == before
 
 
 def test_dispatch_has_no_override():
-    """Only the tensors' device picks the path: no ``force`` or mode argument."""
+    """Only the tensors' device picks between a kernel and its plain version:
+    no ``force`` or mode argument.  ``use_mxu`` chooses between two kernels."""
     for fn in (ops.multi_extension_supports, ops.extension_supports):
         assert list(inspect.signature(fn).parameters) in (
-            ["item_bits", "prefix_tids"], ["item_bits", "prefix_tid"]
+            ["item_bits", "prefix_tids", "use_mxu"], ["item_bits", "prefix_tid"]
         )
     with pytest.raises(ValueError):
         ops.extension_supports(torch.zeros((2, 3), dtype=torch.int32, device="meta"),
@@ -92,6 +170,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     items, tids = bm.from_reference(_words((9, 5), 1)), bm.from_reference(_words((4, 5), 2))
     with pytest.raises(ValueError):
         ms.multi_extension_supports_cuda(items, tids)
+    with pytest.raises(ValueError):
+        ms.multi_extension_supports_mxu_cuda(items, tids)
     with pytest.raises(ValueError):
         bs.extension_supports_cuda(items, tids[0])
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels B1 and B3 against their plain torch versions, on the card.
+"""The CUDA kernels B1, B2 and B3 against their plain torch versions, on the card.
 
 Every case carries the ``cuda`` marker and skips where CUDA is not available.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -27,6 +27,11 @@ MULTI_SHAPES = [
     (16, 100, 64), (16, 100, 15625), (1, 100, 15625), (64, 100, 3907),
     (9, 5, 1025), (17, 131, 4097), (0, 10, 8), (4, 0, 8), (4, 10, 0),
 ]
+# B2: K pads to 16 and I to 32 inside the kernel; W splits over blocks
+MXU_SHAPES = [
+    (k, i, w) for k in (1, 13, 16, 17, 64) for i in (1, 7, 8, 33, 100, 131)
+    for w in (1, 2, 33, 1025)
+] + [(16, 100, 15625), (64, 100, 15625), (0, 10, 8), (4, 0, 8), (4, 10, 0)]
 SINGLE_SHAPES = [
     (7, 2), (16, 1), (33, 9), (130, 33), (53, 300),
     (100, 64), (100, 15625), (1, 1), (257, 4097), (0, 9), (9, 0),
@@ -85,3 +90,53 @@ def test_wrappers_check_their_inputs(cuda):
         bs.extension_supports_cuda(items[:, ::2], tids[0, :4])
     with pytest.raises(ValueError):
         ms.multi_extension_supports_cuda(items, tids.cpu())
+
+
+@pytest.mark.parametrize("k,i,w", MXU_SHAPES)
+def test_mxu_kernel_matches_plain_and_b1(cuda, k, i, w):
+    items = bm.from_reference(_words((i, w), seed=i * 3 + w)).to(cuda)
+    tids = bm.from_reference(_words((k, w), seed=k * w + 11)).to(cuda)
+    before = ms.multi_extension_supports_mxu_cuda.launches
+    got = ops.multi_extension_supports(items, tids, use_mxu=True)
+    torch.cuda.synchronize()
+    assert ms.multi_extension_supports_mxu_cuda.launches == before + (k * i * w > 0)
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (k, i)
+    assert torch.equal(got, ms.multi_extension_supports_mxu_plain(items, tids))
+    assert torch.equal(got, ms.multi_extension_supports_cuda(items, tids))
+
+
+def test_mxu_wrapper_checks_its_inputs(cuda):
+    items = torch.zeros((6, 8), dtype=torch.int32, device=cuda)
+    tids = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        ms.multi_extension_supports_mxu_cuda(items.to(torch.int64), tids)
+    with pytest.raises(TypeError):
+        ms.multi_extension_supports_mxu_cuda(items, tids.to(torch.uint8))
+    with pytest.raises(ValueError):
+        ms.multi_extension_supports_mxu_cuda(items, tids[:, :4])
+    with pytest.raises(ValueError):
+        ms.multi_extension_supports_mxu_cuda(items[0], tids)
+    with pytest.raises(ValueError):  # [6, 8] with the strides of a transpose
+        ms.multi_extension_supports_mxu_cuda(torch.zeros_like(items).reshape(8, 6).t(), tids)
+    with pytest.raises(ValueError):
+        ms.multi_extension_supports_mxu_cuda(items, tids.cpu())
+    with pytest.raises(ValueError):
+        ms.multi_extension_supports_mxu_cuda(items.cpu(), tids.cpu())
+
+
+def test_use_mxu_on_the_card_never_reaches_a_plain_version(cuda, monkeypatch):
+    items = bm.from_reference(_words((33, 40), seed=1)).to(cuda)
+    tids = bm.from_reference(_words((17, 40), seed=2)).to(cuda)
+    want = ms.multi_extension_supports_mxu_plain(items, tids)
+
+    def refuse(*args):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ms, "multi_extension_supports_mxu_plain", refuse)
+    monkeypatch.setattr(ms, "multi_extension_supports_plain", refuse)
+    before = ops.kernel_launches()
+    got = ops.multi_extension_supports(items, tids, use_mxu=True)
+    after = ops.kernel_launches()
+    assert torch.equal(got, want)
+    assert after["multi_extension_supports_mxu"] == before["multi_extension_supports_mxu"] + 1
+    assert after["multi_extension_supports"] == before["multi_extension_supports"]
