@@ -10,10 +10,11 @@ prints one JSON object on a line of its own:
   build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``,
            and the tensor-core MMA instructions in B2's SASS;
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
-           and the main path's shapes (B2 to B1's kernel too), with its device
-           time, the plain version's, and the least time the card could take
-           (``bound_ms``); for B2 also one PyTorch call that computes the same
-           product (``library_ms``);
+           and the main path's shapes (B2 to B1's kernel too; B4 and B5 for Q,
+           F, T in {1, 7, 129, 1000} and 1, 4, 9 and 40 item words), with its
+           device time, the plain version's, and the least time the card could
+           take (``bound_ms``); for B2 also one PyTorch call that computes the
+           same product (``library_ms``);
   main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
            support 0.2, P=4, K=16, with the kernels' launch counts in that run;
   exact    the FITable on the card is the same for K in {1, 16, 64} and P in
@@ -26,9 +27,22 @@ prints one JSON object on a line of its own:
   resume   on T20I0.1P50PL10TL40, a run killed after round 0 and resumed
            from its checkpoint gives the unbroken run's FITable, row for row,
            with B1 and with B2;
-  profile  the main path and both cluster paths once more under
-           ``torch.profiler``: the card's busy time and share of the wall, and
-           the kernels' share of that.
+  serve    the mine-then-serve launcher's path on the thesis database at
+           support 0.2 with its defaults (minconf 0.5, 1024 queries, batch
+           256): the FITable of ``main``, R rules, QPS, batch latency, cache
+           hit rate, B4's launches and the peak memory; every answer of the
+           replay equals the same engine's on the CPU (B4's plain version);
+           then B4 timed at the path's shapes, F = |F| and F = 2R;
+  stream   the streaming launcher's path on the T…I0.1P50PL10TL40 family: a
+           window of 8 blocks × 65,536 rows at support 0.2, 24 blocks with a
+           drift at block 12: 0 torn-index failures, the delta-maintained
+           supports equal to a full recompute after every block, a re-mine
+           triggered by the drift, B4's and B5's launches; then B5 timed at
+           the delta's shape, S=2, T=65,536, for the stream's last index and
+           for F = |F| of the thesis database;
+  profile  the main path, both cluster paths and the serve replay once more
+           under ``torch.profiler``: the card's busy time and share of the
+           wall, and the kernels' share of that.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -69,6 +83,12 @@ INT32_PER_CLOCK_SM = 64
 POPC_PER_CLOCK_SM = 16
 INT8_TENSOR_OPS_PER_S = 1.979e15
 
+# The serving and streaming paths (launchers' defaults, thesis widths)
+SERVE_ARGS = ["--db", THESIS_DB, "--support", str(SUPPORT)]
+STREAM_ARGS = ["--db", THESIS_DB, "--support", str(SUPPORT), "--blocks", "8",
+               "--blocktx", "65536", "--stream", "24", "--breaks", "12", "--minconf", "0.6",
+               "--eps", "0.1", "--queries", "512", "--batch", "256"]
+
 # Each kernel at the shape where its path spends its time in it: B1 in
 # Phase 4 on the miners' slabs (K=16, W=15625 words), B3 in Phases 1 and 2 on
 # the 2048-row sample (W=64), B2 in the cluster executor's Phase 4 at K=64.
@@ -82,6 +102,14 @@ KERNELS = {
     "multi_extension_supports_mxu": {
         "replaces": "src/repro/kernels/multi_support.py:146", "main_shape": (64, 100, 15625),
         "source": "src/repro_torch/kernels/csrc/mxu_support.cu"},
+    # B4 at the rules query (Q=256 against the [2R, IW] slab) and B5 at the
+    # delta (S=2 blocks of 65,536 rows against |F|): shapes of the run
+    "subset_superset_counts": {
+        "replaces": "src/repro/kernels/subset_query.py:94", "main_shape": None,
+        "source": "src/repro_torch/kernels/csrc/subset_query.cu"},
+    "block_itemset_supports": {
+        "replaces": "src/repro/kernels/delta_support.py:101", "main_shape": None,
+        "source": "src/repro_torch/kernels/csrc/delta_support.cu"},
 }
 
 
@@ -153,6 +181,31 @@ def mxu_bound(K: int, I: int, W: int):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_ops
 
 
+def subset_bound(Q: int, F: int, IW: int, sms: int):
+    """Least time for B4's two ``[Q, F]`` counts: each input word read once
+    and both int32 outputs written once, against two POPC per (q, f, w) at
+    their issue rate, whichever takes longer."""
+    n_bytes = 4 * IW * (Q + F) + 8 * Q * F
+    n_popc = 2 * Q * F * IW
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    popc_ms = n_popc / (POPC_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    by = "bytes" if bytes_ms >= popc_ms else "operations"
+    return max(bytes_ms, popc_ms), by, n_bytes, n_popc
+
+
+def block_bound(S: int, T: int, F: int, IW: int, sms: int):
+    """Least time for B5's ``[S, F]`` counts: each input word read once and
+    each output written once, against the containment test, which needs one
+    32-bit logic operation per (s, t, f, w) (an AND-NOT folded into an OR, a
+    LOP3) at the integer rate, and no population count."""
+    n_bytes = 4 * IW * (S * T + F) + 4 * S * F
+    n_ops = S * T * F * IW
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / (INT32_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    by = "bytes" if bytes_ms >= ops_ms else "operations"
+    return max(bytes_ms, ops_ms), by, n_bytes, n_ops
+
+
 def cuobjdump() -> str:
     found = shutil.which("cuobjdump")
     if found:
@@ -213,6 +266,7 @@ def phase_kernels(torch, dev):
                  f"K={K} I={I} W={W}")
         if not torch.equal(got, ms.multi_extension_supports_cuda(items, tids)):
             fail(f"multi_extension_supports_mxu differs from B1's kernel at K={K} I={I} W={W}")
+    n_sweep = check_sweeps(torch, words, dev, gen)
     torch.cuda.synchronize()
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -260,9 +314,124 @@ def phase_kernels(torch, dev):
     if any(t["max_abs_err"] for t in timings):
         fail(f"a timed kernel disagrees with its plain version: {timings}")
     emit({"phase": "kernels",
-          "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes),
+          "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes) + n_sweep,
           "bit_equal": True, "timed": timings})
     return timings
+
+
+def check_sweeps(torch, words, dev, gen) -> int:
+    """B4 and B5 bit-equal to their plain versions for Q, F and T in {1, 7,
+    129, 1000} and 1, 4 (100 items), 9 and 40 item words, with ∅ the first
+    itemset, plus empty axes and a mask of 300 words; returns the count."""
+    from repro_torch.kernels import delta_support as ds
+    from repro_torch.kernels import subset_query as sq
+
+    def sets_of(rows, n):
+        """``n`` itemsets: ∅, subsets and supersets of random rows, and
+        random words, so every count, zero included, occurs."""
+        iw = rows.shape[-1]
+        flat = rows.flatten(0, -2)
+        sets = words(n, iw)
+        if n and flat.shape[0]:
+            picked = flat[torch.randint(0, flat.shape[0], (n,), device=dev, generator=gen)]
+            sparse = words(n, iw) & words(n, iw) & words(n, iw)
+            kind = (torch.arange(n, device=dev) % 3)[:, None]
+            sets = torch.where(kind == 1, picked & sparse,
+                               torch.where(kind == 2, picked | sparse, sets))
+        if n:
+            sets[0] = 0
+        return sets.contiguous()
+
+    sizes, widths = (1, 7, 129, 1000), (1, 4, 9, 40)
+    subset_shapes = [(q, f, iw) for q in sizes for f in sizes for iw in widths] + [
+        (0, 5, 4), (5, 0, 4), (3, 5, 0)]
+    for Q, F, IW in subset_shapes:
+        queries = words(Q, IW)
+        sets = sets_of(queries, F)
+        got = sq.subset_superset_counts_cuda(queries, sets)
+        want = sq.subset_superset_counts_plain(queries, sets)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            fail(f"subset_superset_counts differs from its plain version at Q={Q} F={F} IW={IW}")
+    block_shapes = [(b, t, f, iw) for b in (1, 2) for t in sizes for f in sizes
+                    for iw in widths] + [(2, 0, 5, 4), (2, 4, 0, 4), (1, 33, 7, 0),
+                                         (3, 50, 20, 300)]
+    for S, T, F, IW in block_shapes:
+        tx = words(S, T, IW) | words(S, T, IW)
+        sets = sets_of(tx, F)
+        got = ds.block_itemset_supports_cuda(tx, sets)
+        if not torch.equal(got, ds.block_itemset_supports_plain(tx, sets)):
+            fail(f"block_itemset_supports differs from its plain version at S={S} T={T} F={F} "
+                 f"IW={IW}")
+        if F and not bool((got[:, 0] == T).all()):
+            fail(f"block_itemset_supports: the empty itemset missed rows at S={S} T={T} IW={IW}")
+    return len(subset_shapes) + len(block_shapes)
+
+
+def time_subset(torch, queries, sets, sms):
+    """B4 at one shape of the serving path: device time, the plain version's,
+    the bound, and ``torch._int_mm`` as the yardstick."""
+    from repro_torch.kernels import subset_query as sq
+
+    (Q, IW), F = queries.shape, sets.shape[0]
+    miss, extra = sq.subset_superset_counts_cuda(queries, sets)
+    p_miss, p_extra = sq.subset_superset_counts_plain(queries, sets)
+    err = max(int((miss.long() - p_miss.long()).abs().max()),
+              int((extra.long() - p_extra.long()).abs().max()))
+    del p_miss, p_extra
+    b_ms, b_by, n_bytes, n_popc = subset_bound(Q, F, IW, sms)
+    lib = subset_library(torch, queries, sets, miss, extra)
+    return {"name": "subset_superset_counts", "shape": {"Q": Q, "F": F, "IW": IW},
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: sq.subset_superset_counts_cuda(queries, sets),
+                            launches=20),
+            "plain_ms": device_ms(torch, lambda: sq.subset_superset_counts_plain(queries, sets),
+                                  launches=3, reps=3),
+            "library_ms": lib["ms"], "library": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "popc": n_popc}
+
+
+def subset_library(torch, queries, sets, miss, extra):
+    """B4's yardstick: one ``torch._int_mm`` on the 0/1 bits unpacked to int8
+    beforehand gives |q ∩ f|; then miss = |f| − |q ∩ f| and extra = |q| −
+    |q ∩ f|, checked against the kernel.  Neither the unpack nor the two
+    subtractions are in its time, and the port never calls it."""
+    from repro_torch.kernels.multi_support import unpack_bits
+
+    Q, F = miss.shape
+    a = unpack_bits(queries).to(torch.int8)
+    b = torch.zeros((-(-F // 8) * 8, a.shape[1]), dtype=torch.int8, device=sets.device)
+    b[:F] = unpack_bits(sets).to(torch.int8)
+    bt = b.t()
+    out = {"call": "torch._int_mm (int8, int32 out)", "shape": [Q, a.shape[1], b.shape[0]],
+           "unpack_included": False}
+    try:
+        inter = torch._int_mm(a, bt)[:, :F]
+    except RuntimeError as e:   # a shape the library refuses: no yardstick
+        return {**out, "ms": None, "error": str(e).splitlines()[0]}
+    f_size = b[:F].sum(dim=1, dtype=torch.int32)[None, :]
+    q_size = a.sum(dim=1, dtype=torch.int32)[:, None]
+    err = max(int((f_size - inter - miss).abs().max()), int((q_size - inter - extra).abs().max()))
+    return {**out, "max_abs_err": err, "ms": device_ms(torch, lambda: torch._int_mm(a, bt),
+                                                       launches=20)}
+
+
+def time_block(torch, tx, sets, sms):
+    """B5 at one shape of the streaming path: device time, the plain
+    version's and the bound; no single PyTorch call counts the rows that
+    contain each itemset, so there is no yardstick."""
+    from repro_torch.kernels import delta_support as ds
+
+    (S, T, IW), F = tx.shape, sets.shape[0]
+    out = ds.block_itemset_supports_cuda(tx, sets)
+    err = int((out.long() - ds.block_itemset_supports_plain(tx, sets).long()).abs().max())
+    b_ms, b_by, n_bytes, n_ops = block_bound(S, T, F, IW, sms)
+    return {"name": "block_itemset_supports", "shape": {"S": S, "T": T, "F": F, "IW": IW},
+            "max_abs_err": err,
+            "ms": device_ms(torch, lambda: ds.block_itemset_supports_cuda(tx, sets), launches=20),
+            "plain_ms": device_ms(torch, lambda: ds.block_itemset_supports_plain(tx, sets),
+                                  launches=2, reps=3),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "logic_ops": n_ops}
 
 
 def library_call(torch, items, tids, want):
@@ -305,9 +474,14 @@ def reset_launch_counts():
     from repro_torch.kernels import bitmap_support as bs
     from repro_torch.kernels import multi_support as ms
 
+    from repro_torch.kernels import delta_support as ds
+    from repro_torch.kernels import subset_query as sq
+
     ms.multi_extension_supports_cuda.launches = 0
     ms.multi_extension_supports_mxu_cuda.launches = 0
     bs.extension_supports_cuda.launches = 0
+    sq.subset_superset_counts_cuda.launches = 0
+    ds.block_itemset_supports_cuda.launches = 0
 
 
 def phase_main(torch, dev, dense, db_name, gen_s):
@@ -342,25 +516,164 @@ def phase_main(torch, dev, dense, db_name, gen_s):
     return res, launches
 
 
-def phase_profile(torch, dev, dense):
-    """The main path, and the cluster path with B1 and with B2, once more
-    under ``torch.profiler``: how much of the wall the card is busy, and
-    with what.  Only the trace's device-side events (kernels, copies, sets)
-    are summed: a CPU operator's device time repeats that of the kernels it
-    launched.  One stream, so they do not overlap."""
+def same_answer(a, b) -> bool:
+    """One query's answer in two runs: a support, or (rows, values) with
+    float32 confidences bit-equal and NaN in the same slots."""
+    if not isinstance(a, tuple):
+        return int(a) == int(b)
+    rows_a, rows_b = np.asarray(a[0]), np.asarray(b[0])
+    va, vb = np.asarray(a[1]), np.asarray(b[1])
+    if va.dtype != vb.dtype or not np.array_equal(rows_a, rows_b):
+        return False
+    if va.dtype == np.float32:
+        return (np.array_equal(np.isnan(va), np.isnan(vb))
+                and np.array_equal(np.nan_to_num(va).view(np.uint32),
+                                   np.nan_to_num(vb).view(np.uint32)))
+    return np.array_equal(va, vb)
+
+
+def phase_serve(torch, dev, dense, want, sms):
+    """The mine-then-serve launcher's path once, with the launch counts and
+    peak memory of exactly that run; every answer of the replay held against
+    the same engine on the CPU (B4's plain version), answer for answer; then
+    B4 timed at the path's shapes with the replay's first batch of queries."""
+    from repro_torch.core.rules import int32_words
+    from repro_torch.launch import serve_mine
+    from repro_torch.serve import QueryCache, QueryEngine
+
+    args = serve_mine.build_parser().parse_args(SERVE_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = serve_mine.run(dense, args, dev)
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if run.fis != want:
+        fail(f"serve: the FITable ({len(run.fis)}) differs from main's ({len(want)})")
+    if launches["subset_superset_counts"] <= 0 or launches["block_itemset_supports"] \
+            or launches["subset_superset_counts"] != run.launches["subset_superset_counts"]:
+        fail(f"serve: B4 must carry every query and B5 none: {launches}, run {run.launches}")
+
+    t0 = time.perf_counter()
+    cpu = QueryEngine(run.fi_index.to("cpu"), run.rule_index.to("cpu"), batch=args.batch,
+                      top_k=args.topk, cache=QueryCache(args.cache))
+    serve_mine.warm(run.stream, cpu)
+    _, n_cpu, cpu_answers = serve_mine.replay(run.stream, cpu, cpu.cache, args.batch)
+    cpu_s = time.perf_counter() - t0
+    differ = [i for i, (a, b) in enumerate(zip(run.answers, cpu_answers)) if not same_answer(a, b)]
+    if differ or n_cpu != run.n_dispatched or len(cpu_answers) != len(run.answers):
+        fail(f"serve: {len(differ)} answers differ from the CPU engine's (first {differ[:5]}), "
+             f"{run.n_dispatched} dispatched against {n_cpu}")
+
+    queries = torch.from_numpy(int32_words(np.stack([m for _, m in run.stream[:args.batch]])))
+    queries = queries.to(dev)
+    timings = [time_subset(torch, queries, run.fi_index.masks, sms),
+               time_subset(torch, queries, run.rule_index.ant_con, sms)]
+    if any(t["max_abs_err"] for t in timings):
+        fail(f"serve: B4 disagrees with its plain version at the path's shapes: {timings}")
+    lat = np.asarray(run.latencies) * 1e3
+    s = run.cache.stats
+    emit({"phase": "serve", "db": THESIS_DB, "support": SUPPORT, "minconf": args.minconf,
+          "queries": len(run.stream), "batch": args.batch, "topk": args.topk,
+          "n_fis": run.fi_index.n_fis, "n_rules": run.rule_index.n_rules,
+          "mine_s": run.mine_s, "index_s": run.index_s, "serve_s": run.serve_s,
+          "qps": len(run.stream) / run.serve_s,
+          "batch_ms": {"p50": float(np.percentile(lat, 50)), "p95": float(np.percentile(lat, 95)),
+                       "p99": float(np.percentile(lat, 99)), "max": float(lat.max())},
+          "cache_hit_rate": s.hit_rate, "dispatched": run.n_dispatched,
+          "answers_equal_cpu": True, "cpu_replay_s": cpu_s, "wall_s": wall_s,
+          "peak_mem_bytes": peak, "launches": launches, "timed": timings})
+    return run, launches, timings
+
+
+def phase_stream(torch, dev, sms, thesis_masks):
+    """The streaming launcher's path once, with the launch counts of exactly
+    that run, then B5 timed at the delta's shape, S=2 blocks of the window
+    (its two newest), against the last index the stream served and against
+    ``thesis_masks``, the thesis database's |F| itemsets: the size of the
+    stream's indexes before the drift, whose deltas take the longest."""
+    from repro_torch.launch import stream_mine
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = stream_mine.main(STREAM_ARGS + ["--device", dev.type])
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if res is None:
+        fail("stream: the window never filled")
+    sm = res.miner
+    n_blocks = int(STREAM_ARGS[STREAM_ARGS.index("--stream") + 1])
+    window = int(STREAM_ARGS[STREAM_ARGS.index("--blocks") + 1])
+    if res.torn or res.delta_mismatches or res.delta_checks != n_blocks - window + 1:
+        fail(f"stream: {res.torn} torn-index failures, {res.delta_mismatches} of "
+             f"{res.delta_checks} blocks with delta supports unequal to the recompute")
+    drift = [r for r in res.remine_log if r[1] >= 1 and r[2] in ("error", "border")]
+    if not drift:
+        fail(f"stream: no drift-triggered re-mine after the break: {res.remine_log}")
+    if res.launches != launches or launches["subset_superset_counts"] <= 0 \
+            or launches["block_itemset_supports"] <= 0:
+        fail(f"stream: B4 and B5 must both launch: {launches}, run {res.launches}")
+
+    idx = sm.engine.index
+    newest = sm.window.stacked()[-2:].contiguous()
+    timings = [time_block(torch, newest, idx.masks[: idx.n_fis], sms),
+               time_block(torch, newest, thesis_masks, sms)]
+    if any(t["max_abs_err"] for t in timings):
+        fail(f"stream: B5 disagrees with its plain version at the delta's shape: {timings}")
+    st = sm.stats
+    emit({"phase": "stream", "db_family": THESIS_DB, "argv": STREAM_ARGS,
+          "window_rows": sm.window.n_tx, "blocks": st.blocks_in, "tx_in": st.tx_in,
+          "ingest_s": res.ingest_s, "ingest_rows_per_s": st.tx_in / res.ingest_s,
+          "remines": st.remines,
+          "remines_by_reason": {"initial": st.remines - st.fired_error - st.fired_border
+                                - st.fired_recovery, "error": st.fired_error,
+                                "border": st.fired_border, "recovery": st.fired_recovery},
+          "remine_log": [{"block": b, "segment": seg, "reason": why, "mine_ms": m_ms,
+                          "swap_ms": s_ms, "n_fis": f} for b, seg, why, m_ms, s_ms, f
+                         in res.remine_log],
+          "swap_ms_max": max(st.swap_ms), "max_staleness": res.max_staleness,
+          "served": res.n_served, "serve_s": res.serve_s, "qps": res.n_served / res.serve_s,
+          "cache_hit_rate": sm.cache.stats.hit_rate, "torn": res.torn,
+          "delta_checks": res.delta_checks, "delta_mismatches": res.delta_mismatches,
+          "wall_s": wall_s, "peak_mem_bytes": peak, "launches": launches, "timed": timings})
+    return launches, timings[1]
+
+
+def phase_profile(torch, dev, dense, serve_run):
+    """The main path, the cluster path with B1 and with B2, and the serve
+    replay once more under ``torch.profiler``: how much of the wall the card
+    is busy, and with what.  Only the trace's device-side events (kernels,
+    copies, sets) are summed: a CPU operator's device time repeats that of
+    the kernels it launched.  One stream, so they do not overlap."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch import cluster_mine, mine
+    from repro_torch.launch import cluster_mine, mine, serve_mine
+    from repro_torch.serve import QueryCache, QueryEngine
+
+    def serve_replay():
+        args = serve_mine.build_parser().parse_args(SERVE_ARGS)
+        engine = QueryEngine(serve_run.fi_index, serve_run.rule_index, batch=args.batch,
+                             top_k=args.topk, cache=QueryCache(args.cache))
+        serve_mine.warm(serve_run.stream, engine)
+        serve_mine.replay(serve_run.stream, engine, engine.cache, args.batch)
 
     paths = {
         "main": lambda: mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev),
         "cluster": lambda: cluster_mine.run_once(dense, 4, cluster_args(THESIS_DB), dev),
         "cluster_mxu": lambda: cluster_mine.run_once(
             dense, 4, cluster_args(THESIS_DB, "--frontier", "64"), dev, use_mxu=True),
+        "serve": serve_replay,
     }
     symbols = (("multi_extension_supports", "multi_support_kernel"),
                ("extension_supports", "single_support_kernel"),
-               ("multi_extension_supports_mxu", "mxu_support_kernel"))
+               ("multi_extension_supports_mxu", "mxu_support_kernel"),
+               ("subset_superset_counts", "subset_query_kernel"),
+               ("block_itemset_supports", "block_support_kernel"))
     for path, run in paths.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -589,12 +902,20 @@ def main() -> None:
     launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
-    phase_profile(torch, dev, dense)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
+    launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
+    fi = serve_run.fi_index
+    launches_stream, stream_timing = phase_stream(torch, dev, sms, fi.masks[: fi.n_fis])
+    launches["block_itemset_supports"] = launches_stream["block_itemset_supports"]
+    phase_profile(torch, dev, dense, serve_run)
 
+    # each kernel at the shape where its path spends its time: B4 at the rules
+    # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index
     summary = []
-    for t in timings:
+    for t in timings + serve_timings[1:] + [stream_timing]:
         k = KERNELS[t["name"]]
-        if tuple(t["shape"].values()) == k["main_shape"]:
+        if k["main_shape"] is None or tuple(t["shape"].values()) == k["main_shape"]:
             summary.append({"name": t["name"], "route": "cuda", "source": k["source"],
                             "replaces": k["replaces"], "launches": launches[t["name"]],
                             **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms",

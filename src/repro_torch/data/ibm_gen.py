@@ -118,3 +118,35 @@ def generate_dense(params: IBMParams) -> np.ndarray:
     rng = np.random.default_rng(params.seed)
     pool = _draw_pattern_pool(rng, params)
     return _emit_transactions(rng, params, pool, params.n_tx)
+
+
+def drifting_stream(
+    params: IBMParams,
+    *,
+    n_blocks: int,
+    block_tx: int,
+    breaks: tuple = (),
+):
+    """Yield a concept-drifting transaction stream, block by block.
+
+    Yields ``(dense_block [block_tx, n_items], segment_id)`` for
+    ``n_blocks`` blocks.  At every block index listed in ``breaks`` the
+    pattern pool is **re-drawn** (fresh patterns, weights, and corruption
+    over the same item universe): an abrupt concept drift.  ``segment_id``
+    counts the pool in force (0 = initial).
+
+    One host generator drives pool draws and emission in sequence, as in
+    the reference, so the same (params, n_blocks, block_tx, breaks) gives
+    the reference's blocks, bit for bit.
+    """
+    rng = np.random.default_rng(params.seed)
+    pool = _draw_pattern_pool(rng, params)
+    bset = {int(b) for b in breaks}
+    segment = 0
+    for b in range(n_blocks):
+        if b in bset:
+            # a break at 0 re-draws over the initial pool, as documented —
+            # segment ids then start at 1
+            pool = _draw_pattern_pool(rng, params)
+            segment += 1
+        yield _emit_transactions(rng, params, pool, block_tx), segment

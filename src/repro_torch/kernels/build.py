@@ -20,7 +20,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu")
+SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu", CSRC / "subset_query.cu",
+           CSRC / "delta_support.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +34,8 @@ SIGNATURES = {
     "multi_extension_supports": (_P, _P, _P, _I, _I, _I, _I, _P),
     "extension_supports": (_P, _P, _P, _I, _I, _P),
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "block_itemset_supports": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -1,4 +1,4 @@
-"""Dispatch of the support sweeps by the tensors' device alone.
+"""Dispatch of the sweeps by the tensors' device alone.
 
 A CPU tensor goes to the plain torch version; a CUDA tensor goes to the
 hand-written kernel, which launches or raises.  There is no override and no
@@ -6,17 +6,19 @@ fallback from the kernel.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import bitmap_support as _bs
+from repro_torch.kernels import delta_support as _ds
 from repro_torch.kernels import multi_support as _ms
+from repro_torch.kernels import subset_query as _sq
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no support sweep for device {t.device}")
+        raise ValueError(f"no sweep for device {t.device}")
     return t.device.type
 
 
@@ -46,10 +48,41 @@ def multi_extension_supports(
     return _ms.multi_extension_supports_plain(item_bits, prefix_tids)
 
 
+def subset_superset_counts(
+    query_masks: torch.Tensor, fi_masks: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(miss, extra)`` int32[Q, F]: |f ∖ q| and |q ∖ f| for every pair of a
+    query mask and an itemset mask (kernel B4), the serving engine's sweep."""
+    if _route(query_masks) == "cuda":
+        return _sq.subset_superset_counts_cuda(query_masks, fi_masks)
+    return _sq.subset_superset_counts_plain(query_masks, fi_masks)
+
+
+def block_itemset_supports(tx_blocks: torch.Tensor, fi_masks: torch.Tensor) -> torch.Tensor:
+    """``int32[S, F]``: how many rows of each of S stacked transaction blocks
+    ``[S, T, IW]`` contain each itemset (kernel B5), the streaming sweep."""
+    if _route(tx_blocks) == "cuda":
+        return _ds.block_itemset_supports_cuda(tx_blocks, fi_masks)
+    return _ds.block_itemset_supports_plain(tx_blocks, fi_masks)
+
+
+def delta_supports(
+    arrive: torch.Tensor, expire: torch.Tensor, fi_masks: torch.Tensor
+) -> torch.Tensor:
+    """``int32[2, F]``: (arrive counts, expire counts) from one sweep of B5.
+
+    The window support update is ``supports += counts[0] - counts[1]``; both
+    ``[T, IW]`` blocks ride the S axis of :func:`block_itemset_supports`.
+    """
+    return block_itemset_supports(torch.stack([arrive, expire]), fi_masks)
+
+
 def kernel_launches() -> Dict[str, int]:
     """Launches of each kernel so far in this process (its wrapper's counter)."""
     return {
         "multi_extension_supports": _ms.multi_extension_supports_cuda.launches,
         "extension_supports": _bs.extension_supports_cuda.launches,
         "multi_extension_supports_mxu": _ms.multi_extension_supports_mxu_cuda.launches,
+        "subset_superset_counts": _sq.subset_superset_counts_cuda.launches,
+        "block_itemset_supports": _ds.block_itemset_supports_cuda.launches,
     }

@@ -57,8 +57,9 @@ def reference_run(dense, P, seed):
     return _REFERENCE[P, seed]
 
 
-def port_params():
-    return fimi.FimiParams(min_support_rel=SUPPORT, **SAMPLE, eclat=eclat.EclatConfig(**ECLAT))
+def port_params(scheduler="lpt"):
+    return fimi.FimiParams(min_support_rel=SUPPORT, **SAMPLE, scheduler=scheduler,
+                           eclat=eclat.EclatConfig(**ECLAT))
 
 
 def reference_draws(seed, P, T):
@@ -80,9 +81,11 @@ def reference_draws(seed, P, T):
     return torch.from_numpy(np.stack(idx).astype(np.int64)), draws
 
 
-def check_fitable(dense, P, seed):
+def check_fitable(dense, P, seed, scheduler="lpt"):
+    """The port's FITable equals the reference's.  The reference runs its
+    default scheduler: its FITable is exact, so it is every scheduler's."""
     want = reference_run(dense, P, seed)
-    got = fimi.run(fimi.shard_db(dense, P, "cpu"), N_ITEMS, port_params(),
+    got = fimi.run(fimi.shard_db(dense, P, "cpu"), N_ITEMS, port_params(scheduler),
                    seed=seed, device="cpu", materialize=True)
     assert got.fi_dict == want.fi_dict
     assert got.n_fis == want.n_fis == len(want.fi_dict)
@@ -123,6 +126,11 @@ def test_plan_equals_reference_with_its_draws(dense, seed):
     check_plan(dense, 2, seed)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_repl_min_fitable_equals_reference(dense, seed):
+    check_fitable(dense, 2, seed, scheduler="repl_min")
+
+
 def test_launcher_raises_without_cuda(monkeypatch):
     """With no ``--device`` the launcher asks for CUDA, and raises without it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -132,6 +140,24 @@ def test_launcher_raises_without_cuda(monkeypatch):
         fimi.run(torch.zeros((2, 4, 1), dtype=torch.int32), 8, port_params())
 
 
+@pytest.mark.parametrize("launcher", ["serve_mine", "stream_mine"])
+def test_serving_launchers_raise_without_cuda(launcher, monkeypatch):
+    """Without ``--device cpu`` the serving and streaming launchers ask for
+    CUDA and raise without it; with it they run on the CPU."""
+    import importlib
+
+    module = importlib.import_module(f"repro_torch.launch.{launcher}")
+    small = {"serve_mine": ["--db", "T0.2I0.01P5PL3TL4", "--support", "0.2", "--queries", "40"],
+             "stream_mine": ["--db", "T0.1I0.01P5PL3TL4", "--support", "0.2", "--blocks", "2",
+                             "--blocktx", "32", "--stream", "3", "-P", "2"]}[launcher]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(small)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(small + ["--device", "cuda"])
+    assert module.main(small + ["--device", "cpu"]) is not None
+
+
 def test_launcher_imports_neither_jax_nor_repro():
     code = (
         "import json, runpy, sys\n"
@@ -139,6 +165,13 @@ def test_launcher_imports_neither_jax_nor_repro():
         " '--support', '0.08']\n"
         "runpy.run_module('repro_torch.launch.mine', run_name='__main__')\n"
         "import repro_torch.cluster, repro_torch.launch.cluster_mine, repro_torch.store.checksum\n"
+        "sys.argv = ['serve_mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
+        " '--support', '0.08', '--queries', '300']\n"
+        "runpy.run_module('repro_torch.launch.serve_mine', run_name='__main__')\n"
+        "sys.argv = ['stream_mine', '--device', 'cpu', '--db', 'T1I0.02P6PL4TL7',"
+        " '--support', '0.15', '--blocks', '4', '--blocktx', '128', '--stream', '8',"
+        " '--breaks', '5', '-P', '2']\n"
+        "runpy.run_module('repro_torch.launch.stream_mine', run_name='__main__')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -150,6 +183,9 @@ def test_launcher_imports_neither_jax_nor_repro():
     assert "|F| = 3370" in done.stdout
     # the CPU run launches no kernel, and the launcher prints its own run's counts
     assert "kernel launches: multi_extension_supports=0 extension_supports=0" in done.stdout
+    # serving and streaming ran, on the plain versions
+    assert "R=18206 rules" in done.stdout and "torn-index parity failures: 0" in done.stdout
+    assert "subset_superset_counts=0 block_itemset_supports=0" in done.stdout
     assert json.loads(lines[-1]) == []
 
 
@@ -162,7 +198,8 @@ def test_run_counts_its_own_launches(dense, monkeypatch):
     monkeypatch.setattr(bs.extension_supports_cuda, "launches", 3)
     res = fimi.run(fimi.shard_db(dense, 2, "cpu"), N_ITEMS, port_params(), device="cpu")
     assert res.launches == {"multi_extension_supports": 0, "extension_supports": 0,
-                            "multi_extension_supports_mxu": 0}
+                            "multi_extension_supports_mxu": 0, "subset_superset_counts": 0,
+                            "block_itemset_supports": 0}
     assert ms.multi_extension_supports_cuda.launches == 40
 
 

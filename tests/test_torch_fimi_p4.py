@@ -16,3 +16,8 @@ def test_fitable_equals_reference(dense, seed):  # noqa: F811
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_plan_equals_reference_with_its_draws(dense, seed):  # noqa: F811
     check_plan(dense, 4, seed)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_repl_min_fitable_equals_reference(dense, seed):  # noqa: F811
+    check_fitable(dense, 4, seed, scheduler="repl_min")

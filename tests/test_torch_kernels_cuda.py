@@ -1,4 +1,4 @@
-"""The CUDA kernels B1, B2 and B3 against their plain torch versions, on the card.
+"""The CUDA kernels B1–B5 against their plain torch versions, on the card.
 
 Every case carries the ``cuda`` marker and skips where CUDA is not available.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -15,8 +15,10 @@ import torch
 
 from repro_torch.core import bitmap as bm
 from repro_torch.kernels import bitmap_support as bs
+from repro_torch.kernels import delta_support as ds
 from repro_torch.kernels import multi_support as ms
 from repro_torch.kernels import ops
+from repro_torch.kernels import subset_query as sq
 
 pytestmark = pytest.mark.cuda
 
@@ -140,3 +142,104 @@ def test_use_mxu_on_the_card_never_reaches_a_plain_version(cuda, monkeypatch):
     assert torch.equal(got, want)
     assert after["multi_extension_supports_mxu"] == before["multi_extension_supports_mxu"] + 1
     assert after["multi_extension_supports"] == before["multi_extension_supports"]
+
+
+# B4 and B5: ragged query, itemset and row counts against 1, 4 (100 items),
+# 9 and 40 item words; the serving and streaming paths' shapes
+SWEEP_SIZES = (1, 7, 129, 1000)
+SWEEP_WORDS = (1, 4, 9, 40)
+SUBSET_SHAPES = [(q, f, iw) for q in SWEEP_SIZES for f in SWEEP_SIZES for iw in SWEEP_WORDS] + [
+    (256, 15324, 4), (256, 2 * 72000, 4), (0, 5, 4), (5, 0, 4), (3, 5, 0)]
+BLOCK_SHAPES = [(s, t, f, iw) for s in (1, 2) for t in SWEEP_SIZES for f in SWEEP_SIZES
+                for iw in SWEEP_WORDS] + [
+    (2, 65536, 15324, 4), (8, 4096, 300, 4), (0, 4, 5, 4), (2, 0, 5, 4), (2, 4, 0, 4),
+    (1, 33, 7, 0), (3, 50, 20, 300)]
+
+
+def _sets_from_rows(rows, n, seed):
+    """``n`` itemsets: sparse subsets of the given rows (containment is
+    common), random words, and ∅ first."""
+    rng = np.random.default_rng(seed)
+    iw = rows.shape[-1]
+    flat = rows.reshape(int(np.prod(rows.shape[:-1])), iw)
+    sets = _words((n, iw), seed)
+    for r in range(n):
+        if r % 3 and len(flat):
+            sparse = (_words((iw,), seed + r) & _words((iw,), seed + r + 1)
+                      & _words((iw,), seed + r + 2))
+            sets[r] = flat[rng.integers(len(flat))] & sparse
+    if n:
+        sets[0] = 0
+    return sets
+
+
+@pytest.mark.parametrize("q,f,iw", SUBSET_SHAPES)
+def test_subset_query_kernel_matches_plain(cuda, q, f, iw):
+    queries = _words((q, iw), seed=q + 3 * f + iw)
+    sets = _sets_from_rows(queries, f, seed=q * f + iw + 1)
+    queries, sets = bm.from_reference(queries).to(cuda), bm.from_reference(sets).to(cuda)
+    before = sq.subset_superset_counts_cuda.launches
+    miss, extra = ops.subset_superset_counts(queries, sets)
+    torch.cuda.synchronize()
+    assert sq.subset_superset_counts_cuda.launches == before + (q * f > 0)
+    assert miss.is_cuda and miss.dtype == extra.dtype == torch.int32
+    assert miss.shape == extra.shape == (q, f)
+    want_miss, want_extra = sq.subset_superset_counts_plain(queries, sets)
+    assert torch.equal(miss, want_miss) and torch.equal(extra, want_extra)
+
+
+@pytest.mark.parametrize("s,t,f,iw", BLOCK_SHAPES)
+def test_block_support_kernel_matches_plain(cuda, s, t, f, iw):
+    tx = _words((s, t, iw), seed=s + t + f + iw) | _words((s, t, iw), seed=t * 7 + iw)
+    sets = _sets_from_rows(tx, f, seed=f * 3 + t)
+    tx, sets = bm.from_reference(tx).to(cuda), bm.from_reference(sets).to(cuda)
+    before = ds.block_itemset_supports_cuda.launches
+    got = ops.block_itemset_supports(tx, sets)
+    torch.cuda.synchronize()
+    assert ds.block_itemset_supports_cuda.launches == before + (s * t * f > 0)
+    assert got.is_cuda and got.dtype == torch.int32 and got.shape == (s, f)
+    assert torch.equal(got, ds.block_itemset_supports_plain(tx, sets))
+    if f:
+        assert (got[:, 0] == t).all()     # ∅ is in every real row, and only those
+
+
+def test_delta_supports_on_the_card_never_reaches_a_plain_version(cuda, monkeypatch):
+    tx = bm.from_reference(_words((2, 300, 4), seed=3) | _words((2, 300, 4), seed=4)).to(cuda)
+    sets = bm.from_reference(_sets_from_rows(bm.to_reference(tx), 77, seed=5)).to(cuda)
+    want = ds.block_itemset_supports_plain(tx, sets)
+
+    def refuse(*args):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ds, "block_itemset_supports_plain", refuse)
+    monkeypatch.setattr(sq, "subset_superset_counts_plain", refuse)
+    before = ops.kernel_launches()
+    got = ops.delta_supports(tx[0], tx[1], sets)
+    miss, _ = ops.subset_superset_counts(tx[0], sets)
+    after = ops.kernel_launches()
+    assert torch.equal(got, want) and miss.shape == (300, 77)
+    assert after["block_itemset_supports"] == before["block_itemset_supports"] + 1
+    assert after["subset_superset_counts"] == before["subset_superset_counts"] + 1
+
+
+def test_sweep_wrappers_check_their_inputs(cuda):
+    q = torch.zeros((6, 4), dtype=torch.int32, device=cuda)
+    f = torch.zeros((3, 4), dtype=torch.int32, device=cuda)
+    tx = torch.zeros((2, 6, 4), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        sq.subset_superset_counts_cuda(q.to(torch.int64), f)
+    with pytest.raises(ValueError):
+        sq.subset_superset_counts_cuda(q, f[:, :3])
+    with pytest.raises(ValueError):
+        sq.subset_superset_counts_cuda(torch.zeros((4, 6), dtype=torch.int32, device=cuda).t(), f)
+    with pytest.raises(ValueError):
+        sq.subset_superset_counts_cuda(q, f.cpu())
+    with pytest.raises(TypeError):
+        ds.block_itemset_supports_cuda(tx, f.to(torch.int64))
+    with pytest.raises(ValueError):
+        ds.block_itemset_supports_cuda(tx[0], f)
+    with pytest.raises(ValueError):
+        ds.block_itemset_supports_cuda(tx[:, ::2], f)
+    with pytest.raises(ValueError):
+        ds.block_itemset_supports_cuda(tx.cpu(), f)
+
