@@ -11,14 +11,19 @@ prints one JSON object on a line of its own:
            and the tensor-core MMA instructions in B2's SASS;
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
            and the main path's shapes (B2 to B1's kernel too; B4 and B5 for Q,
-           F, T in {1, 7, 129, 1000} and 1, 4, 9 and 40 item words), with its
-           device time, the plain version's, and the least time the card could
-           take (``bound_ms``); for B2 also one PyTorch call that computes the
-           same product (``library_ms``);
+           F, T in {1, 7, 129, 1000} and 1, 4, 9 and 40 item words; B6 and B7,
+           and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W in {1, 2,
+           33, 1025, 15625} under a valid mask with zero words and a ragged
+           last word), with its device time, the plain version's, and the
+           least time the card could take (``bound_ms``); for B1, B2, B3, B6
+           and B7 also one PyTorch call that computes the same product
+           (``library_ms``);
   main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
            support 0.2, P=4, K=16, with the kernels' launch counts in that run;
   exact    the FITable on the card is the same for K in {1, 16, 64} and P in
-           {1, 4}, equals the port's own CPU run on a 20k-row database, and
+           {1, 4} and with the DB-Repl-Min scheduler (whose profit matrix is
+           B6, equal to the CPU's on the run's own tidlists and timed on
+           them), equals the port's own CPU run on a 20k-row database, and
            equals brute force on T1I0.032P20PL6TL10 at 0.08;
   cluster  the cluster launcher's path (planner, rounds, rebalancing) on the
            thesis database at P=4, K=16: the same FITable as ``main``;
@@ -40,6 +45,10 @@ prints one JSON object on a line of its own:
            triggered by the drift, B4's and B5's launches; then B5 timed at
            the delta's shape, S=2, T=65,536, for the stream's last index and
            for F = |F| of the thesis database;
+  profile_demo  the profiled demo mine on the thesis database at 0.2, P=4,
+           with a run record (``--trace --profile``): measured time in all five
+           dispatch families (B3, B1, B7, B4, B5), B7's output equal to B6's
+           plain version, |F| of ``main``, the four phase spans in the trace;
   profile  the main path, both cluster paths and the serve replay once more
            under ``torch.profiler``: the card's busy time and share of the
            wall, and the kernels' share of that.
@@ -70,18 +79,9 @@ SUPPORT = 0.2
 MID_DB = "T20I0.1P50PL10TL40"         # 20k rows, 100 items: also mined on the CPU
 SMALL_DB, SMALL_SUPPORT = "T1I0.032P20PL6TL10", 0.08  # small enough for brute force
 
-# H100 SXM (NVIDIA's data sheet, dense, at the 700 W limit): 3.35 TB/s of HBM3.
-# The data sheet gives no 32-bit integer rate.  The CUDA C++ Programming
-# Guide's arithmetic-instruction throughput table gives, per clock and SM on
-# compute capability 9.0, 64 32-bit integer adds or bitwise operations and 16
-# population counts; the card's SM count is read from the device, at the
-# H100 SXM's 1.98 GHz maximum SM clock.
-# The tensor cores' dense int8 rate, from the same data sheet: 1,979 T/s.
-HBM_BYTES_PER_S = 3.35e12
-SM_CLOCK_HZ = 1.98e9
-INT32_PER_CLOCK_SM = 64
-POPC_PER_CLOCK_SM = 16
-INT8_TENSOR_OPS_PER_S = 1.979e15
+# The card's rates (memory, integer and POPC issue, int8 tensor cores) are
+# those of ``repro_torch/obs/machine.py``, the one yardstick the port's
+# profiler prices with too; the SM count is read from the device.
 
 # The serving and streaming paths (launchers' defaults, thesis widths)
 SERVE_ARGS = ["--db", THESIS_DB, "--support", str(SUPPORT)]
@@ -91,7 +91,10 @@ STREAM_ARGS = ["--db", THESIS_DB, "--support", str(SUPPORT), "--blocks", "8",
 
 # Each kernel at the shape where its path spends its time in it: B1 in
 # Phase 4 on the miners' slabs (K=16, W=15625 words), B3 in Phases 1 and 2 on
-# the 2048-row sample (W=64), B2 in the cluster executor's Phase 4 at K=64.
+# the 2048-row sample (W=64), B2 in the cluster executor's Phase 4 at K=64,
+# B7 at the profiled demo's I=100, W=15625; B6 on its own path, the
+# DB-Repl-Min profit matrix of the run's classes over the sample's 64 words
+# (its time at the demo's shape stands beside it).
 KERNELS = {
     "multi_extension_supports": {
         "replaces": "src/repro/kernels/multi_support.py:86", "main_shape": (16, 100, 15625),
@@ -110,6 +113,12 @@ KERNELS = {
     "block_itemset_supports": {
         "replaces": "src/repro/kernels/delta_support.py:101", "main_shape": None,
         "source": "src/repro_torch/kernels/csrc/delta_support.cu"},
+    "pair_supports": {
+        "replaces": "src/repro/kernels/pair_support.py:74", "main_shape": None,
+        "source": "src/repro_torch/kernels/csrc/pair_support.cu"},
+    "pair_supports_mxu": {
+        "replaces": "src/repro/kernels/pair_support.py:133", "main_shape": (100, 15625),
+        "source": "src/repro_torch/kernels/csrc/pair_support.cu"},
 }
 
 
@@ -160,11 +169,17 @@ def bound(K: int, I: int, W: int, sms: int):
     each input word read once and each output written once, against one POPC
     per (k, i, w) at its own issue rate and one AND and one ADD at the 32-bit
     integer rate, whichever pipe takes longer."""
-    n_bytes = 4 * (I * W + K * W + K * I)
-    n_popc = K * I * W
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    popc_ms = n_popc / (POPC_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
-    alu_ms = 2 * n_popc / (INT32_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    return popc_bound(4 * (I * W + K * W + K * I), K * I * W, sms)
+
+
+def popc_bound(n_bytes: int, n_popc: int, sms: int):
+    """Least time to move ``n_bytes`` and issue ``n_popc`` POPC, each with an
+    AND and an ADD beside it at the 32-bit integer rate."""
+    from repro_torch.obs import machine as hw
+
+    bytes_ms = n_bytes / hw.HBM_BYTES_PER_S * 1e3
+    popc_ms = n_popc / (hw.POPC_PER_CLOCK_SM * sms * hw.SM_CLOCK_HZ) * 1e3
+    alu_ms = 2 * n_popc / (hw.INT32_PER_CLOCK_SM * sms * hw.SM_CLOCK_HZ) * 1e3
     ops_ms = max(popc_ms, alu_ms)
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_popc
 
@@ -174,21 +189,41 @@ def mxu_bound(K: int, I: int, W: int):
     (each input word read once, each output written once) over the memory
     rate, or the product's 2·K·I·32·W operations on 0/1 values at the dense
     int8 rate (the data sheet gives no rate for the 1-bit form B2 uses)."""
-    n_bytes = 4 * (I * W + K * W + K * I)
-    n_ops = 2 * K * I * 32 * W
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / INT8_TENSOR_OPS_PER_S * 1e3
+    return tensor_bound(4 * (I * W + K * W + K * I), 2 * K * I * 32 * W)
+
+
+def tensor_bound(n_bytes: int, n_ops: int):
+    """Least time to move ``n_bytes`` and do ``n_ops`` operations on 0/1
+    values at the tensor cores' dense int8 rate."""
+    from repro_torch.obs import machine as hw
+
+    bytes_ms = n_bytes / hw.HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / hw.INT8_TENSOR_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_ops
+
+
+def pair_bound(I: int, W: int, sms: int, mxu: bool):
+    """Least time for B6's or B7's ``[I, I]`` counts: the item words and the
+    valid mask read once and the output written once, against the work of the
+    I(I+1)/2 distinct pairs (S is symmetric): a POPC per pair and word for B6,
+    2·32 operations on 0/1 values per pair and word for B7."""
+    n_bytes = 4 * (I * W + W + I * I)
+    pairs = I * (I + 1) // 2
+    if mxu:
+        return tensor_bound(n_bytes, 2 * pairs * 32 * W)
+    return popc_bound(n_bytes, pairs * W, sms)
 
 
 def subset_bound(Q: int, F: int, IW: int, sms: int):
     """Least time for B4's two ``[Q, F]`` counts: each input word read once
     and both int32 outputs written once, against two POPC per (q, f, w) at
     their issue rate, whichever takes longer."""
+    from repro_torch.obs import machine as hw
+
     n_bytes = 4 * IW * (Q + F) + 8 * Q * F
     n_popc = 2 * Q * F * IW
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    popc_ms = n_popc / (POPC_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    bytes_ms = n_bytes / hw.HBM_BYTES_PER_S * 1e3
+    popc_ms = n_popc / (hw.POPC_PER_CLOCK_SM * sms * hw.SM_CLOCK_HZ) * 1e3
     by = "bytes" if bytes_ms >= popc_ms else "operations"
     return max(bytes_ms, popc_ms), by, n_bytes, n_popc
 
@@ -198,10 +233,12 @@ def block_bound(S: int, T: int, F: int, IW: int, sms: int):
     each output written once, against the containment test, which needs one
     32-bit logic operation per (s, t, f, w) (an AND-NOT folded into an OR, a
     LOP3) at the integer rate, and no population count."""
+    from repro_torch.obs import machine as hw
+
     n_bytes = 4 * IW * (S * T + F) + 4 * S * F
     n_ops = S * T * F * IW
-    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / (INT32_PER_CLOCK_SM * sms * SM_CLOCK_HZ) * 1e3
+    bytes_ms = n_bytes / hw.HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / (hw.INT32_PER_CLOCK_SM * sms * hw.SM_CLOCK_HZ) * 1e3
     by = "bytes" if bytes_ms >= ops_ms else "operations"
     return max(bytes_ms, ops_ms), by, n_bytes, n_ops
 
@@ -267,6 +304,7 @@ def phase_kernels(torch, dev):
         if not torch.equal(got, ms.multi_extension_supports_cuda(items, tids)):
             fail(f"multi_extension_supports_mxu differs from B1's kernel at K={K} I={I} W={W}")
     n_sweep = check_sweeps(torch, words, dev, gen)
+    n_pair = check_pairs(torch, words)
     torch.cuda.synchronize()
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -275,11 +313,13 @@ def phase_kernels(torch, dev):
         out = kernel(*args)
         err = int((out.long() - plain(*args).long()).abs().max())
         b_ms, b_by, n_bytes, n_popc = bound(K, I, W, sms)
+        # B3 is B1 at K=1: the same product with one tidlist
+        items, tids = args[0], args[1].reshape(K, W)
+        lib = library_call(torch, items, tids, out.reshape(K, I))
         return {"name": name, "shape": {"K": K, "I": I, "W": W}, "max_abs_err": err,
                 "ms": device_ms(torch, lambda: kernel(*args), launches=100),
                 "plain_ms": device_ms(torch, lambda: plain(*args), launches=5, reps=3),
-                # no single PyTorch call ANDs packed words and counts the bits
-                "library_ms": None,
+                "library_ms": lib["ms"], "library": lib,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "popc": n_popc}
 
     def timed_mxu(K, I, W):
@@ -311,11 +351,17 @@ def phase_kernels(torch, dev):
                              (words(100, W), words(W))))
     for K in (16, 64):
         timings.append(timed_mxu(K, 100, 15625))
-    if any(t["max_abs_err"] for t in timings):
-        fail(f"a timed kernel disagrees with its plain version: {timings}")
+    # both at the demo's shape, every transaction valid as in the demo's
+    # whole database (B6's own path, repl_min, is timed in ``phase_exact``)
+    for mxu in (False, True):
+        timings.append(time_pair(torch, words(100, 15625),
+                                 torch.full((15625,), -1, dtype=torch.int32, device=dev),
+                                 sms, mxu))
+    if any(t["max_abs_err"] or t.get("library", {}).get("max_abs_err") for t in timings):
+        fail(f"a timed kernel or its library call disagrees with its plain version: {timings}")
     emit({"phase": "kernels",
-          "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes) + n_sweep,
-          "bit_equal": True, "timed": timings})
+          "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes) + n_sweep
+          + n_pair, "bit_equal": True, "timed": timings})
     return timings
 
 
@@ -365,6 +411,54 @@ def check_sweeps(torch, words, dev, gen) -> int:
         if F and not bool((got[:, 0] == T).all()):
             fail(f"block_itemset_supports: the empty itemset missed rows at S={S} T={T} IW={IW}")
     return len(subset_shapes) + len(block_shapes)
+
+
+def check_pairs(torch, words) -> int:
+    """B6 and B7 bit-equal to their plain versions, and B7 to B6, for I in
+    {1, 7, 8, 17, 33, 100, 131} and W in {1, 2, 33, 1025, 15625}, plus empty I
+    and W, under a valid mask with whole words, zero words and a ragged last
+    word; returns the count."""
+    from repro_torch.kernels import pair_support as ps
+
+    shapes = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1025, 15625)]
+    shapes += [(0, 8), (9, 0)]
+    for I, W in shapes:
+        items, valid = words(I, W), words(W)
+        valid[::3] = -1
+        valid[1::5] = 0
+        if W:
+            valid[-1] = (1 << 13) - 1
+        got = ps.pair_supports_cuda(items, valid)
+        got_mxu = ps.pair_supports_mxu_cuda(items, valid)
+        if not torch.equal(got, ps.pair_supports_plain(items, valid)):
+            fail(f"pair_supports differs from its plain version at I={I} W={W}")
+        if not torch.equal(got_mxu, ps.pair_supports_mxu_plain(items, valid)):
+            fail(f"pair_supports_mxu differs from its plain version at I={I} W={W}")
+        if not torch.equal(got_mxu, got):
+            fail(f"pair_supports_mxu differs from pair_supports at I={I} W={W}")
+    return len(shapes)
+
+
+def time_pair(torch, items, valid, sms, mxu):
+    """B6 or B7 on ``items`` under ``valid``, with ``torch._int_mm`` of the
+    masked bits with themselves as the yardstick."""
+    from repro_torch.kernels import pair_support as ps
+
+    kernel = ps.pair_supports_mxu_cuda if mxu else ps.pair_supports_cuda
+    plain = ps.pair_supports_mxu_plain if mxu else ps.pair_supports_plain
+    I, W = items.shape
+    out = kernel(items, valid)
+    err = int((out.long() - plain(items, valid).long()).abs().max())
+    b_ms, b_by, n_bytes, n_ops = pair_bound(I, W, sms, mxu)
+    masked = items & valid
+    lib = library_call(torch, masked, masked, out)
+    return {"name": "pair_supports_mxu" if mxu else "pair_supports",
+            "shape": {"I": I, "W": W}, "max_abs_err": err,
+            "ms": device_ms(torch, lambda: kernel(items, valid), launches=100),
+            "plain_ms": device_ms(torch, lambda: plain(items, valid), launches=3, reps=3),
+            "library_ms": lib["ms"], "library": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+            ("int8_ops" if mxu else "popc"): n_ops}
 
 
 def time_subset(torch, queries, sets, sms):
@@ -435,7 +529,8 @@ def time_block(torch, tx, sets, sms):
 
 
 def library_call(torch, items, tids, want):
-    """B2's yardstick: one PyTorch call that computes the same product on
+    """The yardstick of B1, B2, B3 (K=1), B6 and B7 (both operands the masked
+    items): one PyTorch call that computes the same product on
     operands unpacked beforehand (the unpack is not in its time, and the port
     never calls it).  ``torch._int_mm`` (int8 in, int32 out) where its shape
     rules allow, with the rows padded to more than 16 and the columns to a
@@ -475,6 +570,7 @@ def reset_launch_counts():
     from repro_torch.kernels import multi_support as ms
 
     from repro_torch.kernels import delta_support as ds
+    from repro_torch.kernels import pair_support as ps
     from repro_torch.kernels import subset_query as sq
 
     ms.multi_extension_supports_cuda.launches = 0
@@ -482,6 +578,8 @@ def reset_launch_counts():
     bs.extension_supports_cuda.launches = 0
     sq.subset_superset_counts_cuda.launches = 0
     ds.block_itemset_supports_cuda.launches = 0
+    ps.pair_supports_cuda.launches = 0
+    ps.pair_supports_mxu_cuda.launches = 0
 
 
 def phase_main(torch, dev, dense, db_name, gen_s):
@@ -498,8 +596,10 @@ def phase_main(torch, dev, dense, db_name, gen_s):
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
     mine.report(res, wall_s)
+    others = {k: n for k, n in launches.items()
+              if k not in ("multi_extension_supports", "extension_supports")}
     if launches["multi_extension_supports"] <= 0 or launches["extension_supports"] <= 0 \
-            or launches["multi_extension_supports_mxu"]:
+            or any(others.values()):
         fail(f"the main path did not launch B1 and B3 alone: {launches}")
     if res.launches != launches:
         fail(f"the run counted {res.launches} launches, its wrappers {launches}")
@@ -673,7 +773,9 @@ def phase_profile(torch, dev, dense, serve_run):
                ("extension_supports", "single_support_kernel"),
                ("multi_extension_supports_mxu", "mxu_support_kernel"),
                ("subset_superset_counts", "subset_query_kernel"),
-               ("block_itemset_supports", "block_support_kernel"))
+               ("block_itemset_supports", "block_support_kernel"),
+               ("pair_supports", "pair_support_kernel"),
+               ("pair_supports_mxu", "pair_support_mxu_kernel"))
     for path, run in paths.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -714,9 +816,11 @@ def fitable(dense, support, **kw):
     return r.fi_dict
 
 
-def phase_exact(dev, dense, n_fis, mid_db, small_db):
-    """One FITable whatever K, P and device, and the brute-force oracle."""
-    from repro_torch.core import eclat
+def phase_exact(torch, dev, sms, dense, n_fis, mid_db, small_db):
+    """One FITable whatever K, P and device, and the brute-force oracle; the
+    repl_min run's profit matrix (B6) equal to the CPU's on the same
+    tidlists, and B6 timed on them."""
+    from repro_torch.core import eclat, schedule
     from repro_torch.data import ibm_gen
     from repro_torch.launch import mine
 
@@ -734,6 +838,38 @@ def phase_exact(dev, dense, n_fis, mid_db, small_db):
             n_by[f"K{K}_P{P}"] = len(got)
     sweep_s = time.perf_counter() - t0
 
+    # mine --scheduler repl_min: the DB-Repl-Min profit matrix on B6, with
+    # the tidlists it was given and what it returned kept for the check below
+    profits = []
+    on_path = schedule.pairwise_shared_transactions
+
+    def recording(tids):
+        out = on_path(tids)
+        profits.append((tids, out))
+        return out
+
+    schedule.pairwise_shared_transactions = recording
+    try:
+        reset_launch_counts()
+        repl = fitable(dense, SUPPORT, P=4, frontier=16, device=dev, scheduler="repl_min")
+        repl_launches = launch_counts()
+    finally:
+        schedule.pairwise_shared_transactions = on_path
+    if repl != want:
+        fail(f"the FITable with the repl_min scheduler ({len(repl)}) differs from main's")
+    if repl_launches["pair_supports"] < 1 or repl_launches["pair_supports_mxu"]:
+        fail(f"the repl_min path did not launch B6 for its profit matrix: {repl_launches}")
+    if len(profits) != 1:
+        fail(f"the repl_min run computed {len(profits)} profit matrices, not one")
+    tids, profit = profits[0]
+    if not np.array_equal(profit, on_path(tids.cpu())):
+        fail("the repl_min run's profit matrix (B6) differs from the CPU's on its tidlists")
+    repl_timing = time_pair(torch, tids.contiguous(),
+                            torch.full((tids.shape[1],), -1, dtype=torch.int32, device=dev),
+                            sms, mxu=False)
+    if repl_timing["max_abs_err"] or repl_timing["library"]["max_abs_err"]:
+        fail(f"B6 or its library call disagrees on the repl_min tidlists: {repl_timing}")
+
     mid = ibm_gen.generate_dense(ibm_gen.params_from_name(mid_db, seed=0))
     mid_dev = fitable(mid, SUPPORT, P=4, frontier=16, device=dev)
     if mid_dev != fitable(mid, SUPPORT, P=4, frontier=16, device="cpu"):
@@ -747,10 +883,69 @@ def phase_exact(dev, dense, n_fis, mid_db, small_db):
     if cli.n_fis != len(oracle):
         fail(f"the launcher's CLI found |F|={cli.n_fis}, brute force {len(oracle)}")
     emit({"phase": "exact", "n_fis_by_K_P": n_by, "sweep_s": sweep_s,
+          "repl_min": {"n_fis": len(repl), "equals_main": True, "launches": repl_launches,
+                       "profit_matrix_equals_cpu": True, "classes": int(tids.shape[0]),
+                       "timed": repl_timing},
           "mid": {"db": mid_db, "n_fis": len(mid_dev), "equals_cpu": True},
           "brute_force": {"db": small_db, "support": SMALL_SUPPORT, "n_fis": len(oracle),
                           "equal": True}})
-    return want, mid
+    return want, mid, repl_launches, repl_timing
+
+
+def phase_profile_demo(torch, dev, dense, n_fis):
+    """The profiled demo mine once on the thesis database at 0.2, P=4, with a
+    run record (``--trace --profile``), with the launch counts of exactly that
+    run: measured time in all five families, B7 launched once a rep and equal
+    to B6's plain version on the demo's operands, |F| of ``main``, and the
+    four ``fimi/phase*`` spans and the ``kernels/*`` gauges in the record."""
+    from repro_torch.kernels import pair_support as ps
+    from repro_torch.launch import profile_demo
+    from repro_torch.obs import profile as obs_profile
+    from repro_torch.obs.runlog import load_run
+
+    with tempfile.TemporaryDirectory() as rec:
+        args = profile_demo.build_parser().parse_args(
+            ["--db", THESIS_DB, "--support", str(SUPPORT), "-P", "4", "--device", dev.type,
+             "--trace", rec, "--profile"])
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        demo = profile_demo.run(dense, args)
+        wall_s = time.perf_counter() - t0
+        launches = launch_counts()
+        record = load_run(rec)
+    fams = demo.report["families"]
+    if demo.missing:
+        fail(f"profile_demo: families without measured time: {demo.missing}")
+    if launches != demo.launches:
+        fail(f"profile_demo: the run counted {demo.launches} launches, its wrappers {launches}")
+    if launches["pair_supports_mxu"] != args.reps or launches["pair_supports"]:
+        fail(f"profile_demo: B7 must carry the pair family, once a rep: {launches}")
+    if not torch.equal(demo.pair_out, ps.pair_supports_plain(demo.item_bits, demo.all_tids)):
+        fail("profile_demo: B7's output differs from B6's plain version on the demo's operands")
+    if demo.result.n_fis != n_fis:
+        fail(f"profile_demo: |F| = {demo.result.n_fis}, main found {n_fis}")
+    spans = {e["name"] for e in record["trace"]["traceEvents"] if e["ph"] == "X"}
+    phases = {"fimi/phase1_sample", "fimi/phase2_partition", "fimi/phase3_exchange",
+              "fimi/phase4_mine"}
+    if not phases <= spans:
+        fail(f"profile_demo: the trace lacks {sorted(phases - spans)}")
+    gauges = record["metrics"]["gauges"]
+    if any(gauges.get(f"kernels/{f}/measured_ms", 0.0) <= 0.0 for f in obs_profile.FAMILIES):
+        fail("profile_demo: the run record lacks a family's measured time")
+    emit({"phase": "profile_demo", "db": THESIS_DB, "support": SUPPORT, "P": 4,
+          "reps": args.reps, "n_fis": demo.result.n_fis, "eager_s": demo.eager_s,
+          "wall_s": wall_s, "progress": demo.result.progress.line(),
+          "machine": demo.report["machine"],
+          "families": {f: {"calls": fams[f]["calls"], "measured_ms": fams[f]["measured_ms"],
+                           "modeled_ms": fams[f]["modeled_ms"],
+                           "achieved_frac": fams[f]["achieved_frac"],
+                           "bound": "memory" if fams[f]["mem_bound"] else "compute"}
+                       for f in obs_profile.FAMILIES},
+          "record": {"spans": sorted(phases), "manifest_backend": record["manifest"]["backend"],
+                     "device_kind": record["manifest"]["device_kind"]},
+          "launches": launches})
+    return launches
 
 
 def cluster_args(db_name, *extra):
@@ -897,12 +1092,16 @@ def main() -> None:
     t0 = time.perf_counter()
     dense = ibm_gen.generate_dense(ibm_gen.params_from_name(THESIS_DB, seed=0))
     res, launches = phase_main(torch, dev, dense, THESIS_DB, time.perf_counter() - t0)
-    want, mid = phase_exact(dev, dense, res.n_fis, MID_DB, SMALL_DB)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want, mid, repl_launches, repl_timing = phase_exact(torch, dev, sms, dense, res.n_fis,
+                                                        MID_DB, SMALL_DB)
+    launches["pair_supports"] = repl_launches["pair_supports"]
+    demo_launches = phase_profile_demo(torch, dev, dense, res.n_fis)
+    launches["pair_supports_mxu"] = demo_launches["pair_supports_mxu"]
     phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=False)
     launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
     launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
     fi = serve_run.fi_index
@@ -911,16 +1110,20 @@ def main() -> None:
     phase_profile(torch, dev, dense, serve_run)
 
     # each kernel at the shape where its path spends its time: B4 at the rules
-    # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index
+    # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index, B6 on
+    # the repl_min tidlists, B7 at the profiled demo's I=100, W=15625
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    b6_demo = next(t for t in timings if t["name"] == "pair_supports")
+    repl_timing["at_demo_shape"] = {key: b6_demo[key] for key in keys}
     summary = []
-    for t in timings + serve_timings[1:] + [stream_timing]:
+    for t in [t for t in timings if t is not b6_demo] + [repl_timing] + serve_timings[1:] \
+            + [stream_timing]:
         k = KERNELS[t["name"]]
         if k["main_shape"] is None or tuple(t["shape"].values()) == k["main_shape"]:
             summary.append({"name": t["name"], "route": "cuda", "source": k["source"],
                             "replaces": k["replaces"], "launches": launches[t["name"]],
-                            **{key: t[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                                       "bound_ms", "bound_by",
-                                                       "library_ms", "shape")}})
+                            **{key: t[key] for key in keys + ("at_demo_shape",)
+                               if key in t}})
     emit({"kernels": summary})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(smi, flush=True)

@@ -10,6 +10,11 @@
 
 The sample only steers the partition: Phase 4 always mines the whole
 database, so the FITable is exact for any sample and any seed.
+
+Observability as in the reference: a span per phase (``fimi/phase1_sample``,
+``fimi/phase2_partition``, ``fimi/phase3_exchange``, ``fimi/phase4_mine``)
+that covers the device's time while tracing, a progress estimate around
+Phase 4 (``FimiResult.progress``), and the ``fimi/*`` run metrics.
 """
 from __future__ import annotations
 
@@ -24,6 +29,9 @@ from repro_torch import device as device_mod
 from repro_torch.core import bitmap as bm
 from repro_torch.core import eclat, pbec, phases, sampling, schedule
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import progress as obs_progress
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +73,7 @@ class FimiResult:
     phase_s: Dict[str, float]           # seconds per phase, device-synchronised
     launches: Dict[str, int]            # kernel launches of this run, by kernel
     fi_dict: Optional[Dict] = None      # materialized {frozenset: supp}
+    progress: Optional[obs_progress.ProgressSnapshot] = None  # final snapshot
 
 
 def run(
@@ -88,6 +97,7 @@ def run(
     replace the Phase-1 draws, so a test can replay the reference's plan.
     """
     dev = device_mod.resolve(device)
+    tr = obs_trace.TRACER
     launched_before = ops.kernel_launches()
     tx_shards = tx_shards.to(dev)
     P, T, IW = tx_shards.shape
@@ -111,12 +121,13 @@ def run(
 
     t0 = time.perf_counter()
     # ---------------- Phase 1 ------------------------------------------------
-    out1 = phases.phase1_device(
-        tx_shards, params.min_support_rel, coll=coll, n_items=n_items,
-        n_sample_per_proc=per_proc, reservoir_size=n_fs, eclat_cfg=params.eclat,
-        generators=[device_mod.generator(dev, seed, p) for p in range(P)],
-        sample_idx=sample_idx, reservoir_draws=reservoir_draws,
-    )
+    with tr.span("fimi/phase1_sample", P=P, variant="reservoir"):
+        out1 = tr.sync(phases.phase1_device(
+            tx_shards, params.min_support_rel, coll=coll, n_items=n_items,
+            n_sample_per_proc=per_proc, reservoir_size=n_fs, eclat_cfg=params.eclat,
+            generators=[device_mod.generator(dev, seed, p) for p in range(P)],
+            sample_idx=sample_idx, reservoir_draws=reservoir_draws,
+        ))
     n_samp = out1.sample_db.shape[0]
     sample_bitdb = bm.rebuild_vertical(out1.sample_db, n_items, n_samp)
 
@@ -145,33 +156,35 @@ def run(
         tid = bm.tidlist_of_itemset(sample_bitdb, torch.from_numpy(prefix).to(dev))
         return bm.extension_supports(sample_bitdb.item_bits, tid).cpu().numpy()  # kernel B3
 
-    classes = pbec.partition(
-        sample_masks, P, params.alpha, ext_supports, n_items,
-        max_classes=params.max_classes,
-    )
-    sizes = np.array([c.est_count for c in classes], dtype=np.float64)
-    if params.scheduler == "repl_min":
-        tids = phases.seed_tidlists(
-            sample_bitdb.item_bits,
-            torch.from_numpy(np.stack([c.prefix for c in classes])).to(dev),
-            sample_bitdb.all_tids(),
+    with tr.span("fimi/phase2_partition", scheduler=params.scheduler):
+        classes = pbec.partition(
+            sample_masks, P, params.alpha, ext_supports, n_items,
+            max_classes=params.max_classes,
         )
-        profit = schedule.pairwise_shared_transactions(tids)
-        assignment = schedule.db_repl_min(sizes, profit, P).assignment
-    elif params.scheduler == "lpt":
-        assignment = schedule.lpt_schedule(sizes, P)
-    else:
-        raise ValueError(f"unknown scheduler {params.scheduler!r}")
-    est_loads = schedule.loads_of(sizes, assignment, P)
+        sizes = np.array([c.est_count for c in classes], dtype=np.float64)
+        if params.scheduler == "repl_min":
+            tids = phases.seed_tidlists(
+                sample_bitdb.item_bits,
+                torch.from_numpy(np.stack([c.prefix for c in classes])).to(dev),
+                sample_bitdb.all_tids(),
+            )
+            profit = schedule.pairwise_shared_transactions(tids)  # kernel B6
+            assignment = schedule.db_repl_min(sizes, profit, P).assignment
+        elif params.scheduler == "lpt":
+            assignment = schedule.lpt_schedule(sizes, P)
+        else:
+            raise ValueError(f"unknown scheduler {params.scheduler!r}")
+        est_loads = schedule.loads_of(sizes, assignment, P)
     t0 = lap("phase2", t0)
 
     # ---------------- Phase 3 ------------------------------------------------
     pref_packed, _ = pbec.classes_to_packed(classes)
     local_valid = torch.ones((P, T), dtype=torch.bool, device=dev)
-    out3 = phases.phase3_exchange(
-        tx_shards, local_valid, pref_packed, assignment, coll=coll,
-        capacity=params.exchange_capacity or T,
-    )
+    with tr.span("fimi/phase3_exchange", C=len(classes)):
+        out3 = tr.sync(phases.phase3_exchange(
+            tx_shards, local_valid, pref_packed, assignment, coll=coll,
+            capacity=params.exchange_capacity or T,
+        ))
     t0 = lap("phase3", t0)
 
     # ---------------- Phase 4 ------------------------------------------------
@@ -186,14 +199,22 @@ def run(
             seed_valid[p, j] = True
     ancestor_masks, anc_list = pbec.ancestor_closure(classes, n_items)
 
-    out4 = phases.phase4_mine(
-        out3.slab, out3.slab_valid, tx_shards, local_valid,
-        torch.from_numpy(seed_prefix).to(dev),
-        torch.from_numpy(seed_ext).to(dev),
-        torch.from_numpy(seed_valid).to(dev),
-        torch.from_numpy(ancestor_masks).to(dev),
-        abs_minsup, coll=coll, n_items=n_items, eclat_cfg=params.eclat,
-    )
+    progress = obs_progress.ProgressEstimator(est_loads)
+    progress.start()
+    with tr.span("fimi/phase4_mine", Cmax=Cmax, A=ancestor_masks.shape[0]):
+        out4 = tr.sync(phases.phase4_mine(
+            out3.slab, out3.slab_valid, tx_shards, local_valid,
+            torch.from_numpy(seed_prefix).to(dev),
+            torch.from_numpy(seed_ext).to(dev),
+            torch.from_numpy(seed_valid).to(dev),
+            torch.from_numpy(ancestor_masks).to(dev),
+            abs_minsup, coll=coll, n_items=n_items, eclat_cfg=params.eclat,
+        ))
+    work_iters = np.array([r.n_iters for r in out4.results])
+    # One-shot pipeline: the single update closes the progress record with
+    # the trip-grounded straggler scores (Thm 6.1 estimate vs observation).
+    final_progress = progress.update(est_loads, work_iters.astype(np.float64))
+    progress.finish()
     anc_supports = out4.prefix_supports.cpu().numpy()
     anc_frequent = int((anc_supports[: len(anc_list)] >= abs_minsup).sum())
     n_fis = sum(r.n_total for r in out4.results) + anc_frequent
@@ -210,17 +231,48 @@ def run(
         ancestor_masks=ancestor_masks[: len(anc_list)],
         ancestor_supports=anc_supports[: len(anc_list)],
         n_fis=n_fis,
-        work_iters=np.array([r.n_iters for r in out4.results]),
+        work_iters=work_iters,
         nodes_popped=np.array([r.n_popped for r in out4.results]),
         phase1_iters=out1.n_iters,
         phase1_overflow=out1.overflow,
         phase4_overflow=np.array([r.stack_overflow for r in out4.results]),
         phase_s=phase_s,
         launches={k: n - launched_before[k] for k, n in ops.kernel_launches().items()},
+        progress=final_progress,
     )
+    _emit_run_metrics(result, params, P)
     if materialize:
         result.fi_dict = materialize_fis(result, n_items, abs_minsup)
     return result
+
+
+def _emit_run_metrics(result: FimiResult, params: FimiParams, P: int) -> None:
+    """Publish one pipeline pass into the process-global metrics registry,
+    with the reference's names and values: per-shard estimated load beside
+    the observed Phase-4 DFS trips, their largest share gap, and the frontier
+    occupancy (nodes popped per trip slot) as a histogram."""
+    reg = obs_metrics.registry()
+    trips = result.work_iters.astype(np.float64).reshape(-1)
+    est = result.est_loads.astype(np.float64).reshape(-1)
+    reg.counter("fimi/runs").inc()
+    reg.counter("fimi/trips").inc(int(trips.sum()))
+    reg.counter("fimi/exchange_overflow").inc(result.exchange_overflow)
+    reg.gauge("fimi/n_fis").set(float(result.n_fis))
+    reg.gauge("fimi/n_classes").set(float(len(result.classes)))
+    reg.gauge("fimi/replication").set(float(result.replication))
+    est_share = est / est.sum() if est.sum() > 0 else np.full(P, 1.0 / P)
+    obs_share = trips / trips.sum() if trips.sum() > 0 else np.full(P, 1.0 / P)
+    reg.gauge("fimi/load/estimation_error").set(
+        float(np.abs(est_share - obs_share).max())
+    )
+    occ = reg.histogram("fimi/frontier_occupancy")
+    K = max(1, int(params.eclat.frontier_size))
+    popped = result.nodes_popped.astype(np.float64).reshape(-1)
+    for p in range(P):
+        reg.gauge(f"fimi/shard{p}/est_load").set(float(est[p]))
+        reg.gauge(f"fimi/shard{p}/obs_trips").set(float(trips[p]))
+        if trips[p] > 0:
+            occ.record(float(popped[p]) / (trips[p] * K))
 
 
 def materialize_fis(result: FimiResult, n_items: int, abs_minsup: int) -> Dict:

@@ -1,7 +1,7 @@
 """Schedulers: LPT (Alg. 16) and the replication-aware greedy QKP (Alg. 23).
 
 Host-side control plane (numpy).  ``pairwise_shared_transactions`` counts on
-the port's packed tidlists.
+the port's packed tidlists: on the card with kernel B6.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap as bm
+from repro_torch.kernels import ops
 
 
 def lpt_schedule(sizes: Sequence[float], n_processors: int) -> np.ndarray:
@@ -118,10 +119,11 @@ def db_repl_min(
 
 def pairwise_shared_transactions(tidlists: torch.Tensor) -> np.ndarray:
     """S_ij = popcount(tid_i & tid_j) for packed int32 tidlists [C, W],
-    with a zero diagonal."""
-    inter = bm.popcount(tidlists[:, None, :] & tidlists[None, :, :]).sum(
-        dim=-1, dtype=torch.int32
-    )
+    with a zero diagonal: DB-Repl-Min's profit matrix, through
+    ``ops.pair_supports`` with every word valid (kernel B6 on the card)."""
+    all_words = torch.full((tidlists.shape[1],), bm.ALL_ONES, dtype=torch.int32,
+                           device=tidlists.device)
+    inter = ops.pair_supports(tidlists.contiguous(), all_words, use_mxu=False)
     out = inter.cpu().numpy().copy()
     np.fill_diagonal(out, 0)
     return out

@@ -21,7 +21,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu", CSRC / "subset_query.cu",
-           CSRC / "delta_support.cu")
+           CSRC / "delta_support.cu", CSRC / "pair_support.cu")
+# included by the sources: part of what the library is built from
+HEADERS = (CSRC / "bmma.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,6 +38,8 @@ SIGNATURES = {
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
     "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),
     "block_itemset_supports": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "pair_supports": (_P, _P, _P, _I, _I, _I, _P),
+    "pair_supports_mxu": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -50,9 +54,10 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    """Where the library for the current sources lives (built or not)."""
+    """Where the library for the current sources and headers lives (built or
+    not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libfimi_support_{h.hexdigest()[:16]}.so"

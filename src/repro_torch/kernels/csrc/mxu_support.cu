@@ -6,22 +6,18 @@
 // multi_extension_supports_mxu_pallas (_mxu_kernel, pl.pallas_call at line
 // 146), which unpacks both operands to 0/1 bf16 and takes their dot product
 // on the MXU with f32 accumulation, exact below 2^24.  Here the product is
-// the tensor cores' 1-bit MMA with int32 accumulation,
-// mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc: the dot product
-// of two 0/1 vectors is the population count of their AND, which the MMA
-// takes on the packed bits themselves, with no unpack.  Exact at any size the
-// int32 output holds.
+// the tensor cores' 1-bit MMA with int32 accumulation (bmma.cuh): the dot
+// product of two 0/1 vectors is the population count of their AND, which the
+// MMA takes on the packed bits themselves, with no unpack.  Exact at any size
+// the int32 output holds.
 //
 //   A (16 x 256 bits, row-major)  16 prefixes, 8 packed words each;
 //   B (256 x 8 bits, col-major)   8 items, the same 8 words: column n of B
 //                                 is simply the row-major items[i0 + n, w];
 //   C (16 x 8, int32)             the counts, in registers across the W loop.
 //
-// Each fragment register is one packed word: a0 is word t of row g (t the
-// thread's index in its group of four, g the group), a1 the same word of row
-// g+8, a2 and a3 word 4+t of the two rows; b0 and b1 words t and 4+t of
-// item g.  A and B see the words' bits in the same order, so the count does
-// not depend on it.
+// A and B see the words' bits in the same order, so the count does not
+// depend on it.
 //
 // The int8 MMA m16n8k32 on bytes of 0/1 is exact too, but its unpack in
 // registers (about 12 integer instructions a thread for each MMA) held it
@@ -44,6 +40,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bmma.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;             // four warps
@@ -59,16 +57,6 @@ constexpr int kStride = kStageWords + 4;  // padded row: no bank conflicts
 constexpr int kRowsPerThread = (kTileK + kTileI) / kWarps;
 constexpr int kMinChunk = 4 * kStageWords;
 constexpr int kBlocksPerSm = 4;
-
-__device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1,
-                                       uint32_t a2, uint32_t a3, uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
 
 // grid = (W chunks of whole stages, prefix tiles of 16, item tiles of 32);
 // block = 4 warps.

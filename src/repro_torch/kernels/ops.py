@@ -3,9 +3,15 @@
 A CPU tensor goes to the plain torch version; a CUDA tensor goes to the
 hand-written kernel, which launches or raises.  There is no override and no
 fallback from the kernel.
+
+Every dispatch family is wrapped by the kernel profiler
+(:mod:`repro_torch.obs.profile`), as in the reference: when enabled, each
+call is timed on its device and bucketed by shape; when disabled — the
+default — the wrapper is one attribute check and a tail call.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -13,7 +19,9 @@ import torch
 from repro_torch.kernels import bitmap_support as _bs
 from repro_torch.kernels import delta_support as _ds
 from repro_torch.kernels import multi_support as _ms
+from repro_torch.kernels import pair_support as _ps
 from repro_torch.kernels import subset_query as _sq
+from repro_torch.obs import profile as _prof
 
 
 def _route(t: torch.Tensor) -> str:
@@ -22,6 +30,29 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
+def _profiled(family, dims_fn):
+    """Route a dispatch through the kernel profiler when it is enabled."""
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            if not _prof.PROFILER.enabled:
+                return fn(*args, **kwargs)
+            return _prof.PROFILER.call(
+                family, dims_fn(*args), lambda: fn(*args, **kwargs), args[0].device
+            )
+
+        return wrapper
+
+    return deco
+
+
+@_profiled(
+    "bitmap",
+    lambda item_bits, prefix_tid: {
+        "I": int(item_bits.shape[0]), "W": int(item_bits.shape[1]),
+    },
+)
 def extension_supports(item_bits: torch.Tensor, prefix_tid: torch.Tensor) -> torch.Tensor:
     """``int32[I]`` supports of prefix ∪ {i} for all items (kernel B3)."""
     if _route(item_bits) == "cuda":
@@ -29,6 +60,13 @@ def extension_supports(item_bits: torch.Tensor, prefix_tid: torch.Tensor) -> tor
     return _bs.extension_supports_plain(item_bits, prefix_tid)
 
 
+@_profiled(
+    "multi",
+    lambda item_bits, prefix_tids: {
+        "K": int(prefix_tids.shape[0]),
+        "I": int(item_bits.shape[0]), "W": int(item_bits.shape[1]),
+    },
+)
 def multi_extension_supports(
     item_bits: torch.Tensor, prefix_tids: torch.Tensor, *, use_mxu: bool = False
 ) -> torch.Tensor:
@@ -48,6 +86,13 @@ def multi_extension_supports(
     return _ms.multi_extension_supports_plain(item_bits, prefix_tids)
 
 
+@_profiled(
+    "subset",
+    lambda query_masks, fi_masks: {
+        "Q": int(query_masks.shape[0]),
+        "F": int(fi_masks.shape[0]), "IW": int(fi_masks.shape[1]),
+    },
+)
 def subset_superset_counts(
     query_masks: torch.Tensor, fi_masks: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,6 +103,13 @@ def subset_superset_counts(
     return _sq.subset_superset_counts_plain(query_masks, fi_masks)
 
 
+@_profiled(
+    "delta",
+    lambda tx_blocks, fi_masks: {
+        "S": int(tx_blocks.shape[0]), "T": int(tx_blocks.shape[1]),
+        "F": int(fi_masks.shape[0]), "IW": int(fi_masks.shape[1]),
+    },
+)
 def block_itemset_supports(tx_blocks: torch.Tensor, fi_masks: torch.Tensor) -> torch.Tensor:
     """``int32[S, F]``: how many rows of each of S stacked transaction blocks
     ``[S, T, IW]`` contain each itemset (kernel B5), the streaming sweep."""
@@ -72,9 +124,32 @@ def delta_supports(
     """``int32[2, F]``: (arrive counts, expire counts) from one sweep of B5.
 
     The window support update is ``supports += counts[0] - counts[1]``; both
-    ``[T, IW]`` blocks ride the S axis of :func:`block_itemset_supports`.
+    ``[T, IW]`` blocks ride the S axis of :func:`block_itemset_supports`,
+    whose profiler wrapper times it (so this one has none).
     """
     return block_itemset_supports(torch.stack([arrive, expire]), fi_masks)
+
+
+@_profiled(
+    "pair",
+    lambda item_bits, valid_tid: {
+        "I": int(item_bits.shape[0]), "W": int(item_bits.shape[1]),
+    },
+)
+def pair_supports(
+    item_bits: torch.Tensor, valid_tid: torch.Tensor, *, use_mxu: bool = True
+) -> torch.Tensor:
+    """``int32[I, I]`` supports of every pair of rows of ``item_bits``, masked
+    by ``valid_tid``.  ``use_mxu`` chooses between two kernels, B7 on the
+    tensor cores (the default, as in the reference) or B6 on the integer
+    pipes, and on the CPU between their plain versions."""
+    if _route(item_bits) == "cuda":
+        if use_mxu:
+            return _ps.pair_supports_mxu_cuda(item_bits, valid_tid)
+        return _ps.pair_supports_cuda(item_bits, valid_tid)
+    if use_mxu:
+        return _ps.pair_supports_mxu_plain(item_bits, valid_tid)
+    return _ps.pair_supports_plain(item_bits, valid_tid)
 
 
 def kernel_launches() -> Dict[str, int]:
@@ -85,4 +160,6 @@ def kernel_launches() -> Dict[str, int]:
         "multi_extension_supports_mxu": _ms.multi_extension_supports_mxu_cuda.launches,
         "subset_superset_counts": _sq.subset_superset_counts_cuda.launches,
         "block_itemset_supports": _ds.block_itemset_supports_cuda.launches,
+        "pair_supports": _ps.pair_supports_cuda.launches,
+        "pair_supports_mxu": _ps.pair_supports_mxu_cuda.launches,
     }

@@ -5,7 +5,14 @@ Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it raises.  The support sweeps on the card are the hand-written
 kernels.
 
+``--trace DIR`` / ``--metrics DIR`` record the run (the reference's run
+record, read by its ``obs_report``), ``--profile`` adds the kernel
+profiler's attribution to it, ``--torch-profile DIR`` a ``torch.profiler``
+trace.  Without them nothing is recorded.
+
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 -P 4
+  python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 \
+      --scheduler repl_min --trace RUN --profile
   python -m repro_torch.launch.mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu
 """
 from __future__ import annotations
@@ -20,6 +27,7 @@ import numpy as np
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
 from repro_torch.data.ibm_gen import generate_dense, params_from_name
+from repro_torch.obs.session import add_obs_flags, start_session
 
 
 def mine_params(support: float, n_tx: int, frontier: int, scheduler: str = "lpt",
@@ -58,6 +66,9 @@ def report(res: fimi.FimiResult, wall_s: float) -> None:
     print(f"phase-1 DFS trips per miner: {res.phase1_iters.tolist()}  "
           f"stack overflow: phase1={res.phase1_overflow.tolist()} "
           f"phase4={res.phase4_overflow.tolist()}")
+    if res.progress is not None:
+        print(res.progress.line() + "  stragglers="
+              + ",".join(f"{s:.2f}" for s in res.progress.stragglers))
     print("phase seconds: " + json.dumps({k: round(v, 4) for k, v in res.phase_s.items()}))
     print("kernel launches: " + " ".join(f"{k}={n}" for k, n in res.launches.items()))
 
@@ -73,8 +84,10 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_obs_flags(ap)
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
+    obs = start_session(args, "mine")
 
     t0 = time.perf_counter()
     dense = generate_dense(params_from_name(args.db, seed=args.seed))
@@ -87,6 +100,11 @@ def main(argv: Optional[Sequence[str]] = None):
         scheduler=args.scheduler, alpha=args.alpha, seed=args.seed, device=dev,
     )
     report(res, wall_s)
+    if obs:
+        obs.event("mined", n_fis=res.n_fis, wall_s=wall_s,
+                  work_iters=res.work_iters.tolist())
+        obs.finish(n_fis=res.n_fis, n_tx=n_tx, n_items=n_items,
+                   mine_wall_s=wall_s, replication=res.replication)
     return res
 
 

@@ -172,6 +172,9 @@ def test_launcher_imports_neither_jax_nor_repro():
         " '--support', '0.15', '--blocks', '4', '--blocktx', '128', '--stream', '8',"
         " '--breaks', '5', '-P', '2']\n"
         "runpy.run_module('repro_torch.launch.stream_mine', run_name='__main__')\n"
+        "import repro_torch.obs, repro_torch.obs.session\n"
+        "from repro_torch.launch import profile_demo\n"
+        "assert profile_demo.main(['--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -186,6 +189,9 @@ def test_launcher_imports_neither_jax_nor_repro():
     # serving and streaming ran, on the plain versions
     assert "R=18206 rules" in done.stdout and "torn-index parity failures: 0" in done.stdout
     assert "subset_superset_counts=0 block_itemset_supports=0" in done.stdout
+    # and the profiled demo, every family timed
+    assert "pair_supports=0 pair_supports_mxu=0" in done.stdout
+    assert "profile_demo: families without measured time" not in done.stdout
     assert json.loads(lines[-1]) == []
 
 
@@ -199,7 +205,8 @@ def test_run_counts_its_own_launches(dense, monkeypatch):
     res = fimi.run(fimi.shard_db(dense, 2, "cpu"), N_ITEMS, port_params(), device="cpu")
     assert res.launches == {"multi_extension_supports": 0, "extension_supports": 0,
                             "multi_extension_supports_mxu": 0, "subset_superset_counts": 0,
-                            "block_itemset_supports": 0}
+                            "block_itemset_supports": 0, "pair_supports": 0,
+                            "pair_supports_mxu": 0}
     assert ms.multi_extension_supports_cuda.launches == 40
 
 

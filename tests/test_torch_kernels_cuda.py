@@ -1,4 +1,4 @@
-"""The CUDA kernels B1–B5 against their plain torch versions, on the card.
+"""The CUDA kernels B1–B7 against their plain torch versions, on the card.
 
 Every case carries the ``cuda`` marker and skips where CUDA is not available.
 The file imports neither JAX nor the JAX package, so it runs on a machine
@@ -18,6 +18,7 @@ from repro_torch.kernels import bitmap_support as bs
 from repro_torch.kernels import delta_support as ds
 from repro_torch.kernels import multi_support as ms
 from repro_torch.kernels import ops
+from repro_torch.kernels import pair_support as ps
 from repro_torch.kernels import subset_query as sq
 
 pytestmark = pytest.mark.cuda
@@ -243,3 +244,112 @@ def test_sweep_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         ds.block_itemset_supports_cuda(tx.cpu(), f)
 
+
+
+# B6 and B7: ragged I (B6 tiles of 8, B7 of 32) and W (B7 stages of 32 words),
+# the profiled demo's I=100, W=15625, and the repl_min profit matrix's
+# classes against the sample's 64 words
+PAIR_SHAPES = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1025)] + [
+    (100, 15625), (512, 64), (0, 8), (9, 0)]
+
+
+def _valid(w, seed):
+    """A valid-tid mask with every kind of word: whole, empty, and a ragged
+    last word."""
+    v = _words((w,), seed)
+    if w:
+        v[::3] = 0xFFFFFFFF
+        v[1::5] = 0
+        v[-1] = (1 << 13) - 1
+    return v
+
+
+@pytest.mark.parametrize("i,w", PAIR_SHAPES)
+def test_pair_kernels_match_plain(cuda, i, w):
+    items = bm.from_reference(_words((i, w), seed=i * 5 + w)).to(cuda)
+    valid = bm.from_reference(_valid(w, seed=w + 9)).to(cuda)
+    before = ops.kernel_launches()
+    got = ops.pair_supports(items, valid, use_mxu=False)
+    got_mxu = ops.pair_supports(items, valid)
+    torch.cuda.synchronize()
+    after = ops.kernel_launches()
+    assert after["pair_supports"] == before["pair_supports"] + (i * w > 0)
+    assert after["pair_supports_mxu"] == before["pair_supports_mxu"] + (i * w > 0)
+    for out in (got, got_mxu):
+        assert out.is_cuda and out.dtype == torch.int32 and out.shape == (i, i)
+    assert torch.equal(got, ps.pair_supports_plain(items, valid))
+    assert torch.equal(got_mxu, ps.pair_supports_mxu_plain(items, valid))
+    assert torch.equal(got_mxu, got)
+
+
+def test_pair_wrappers_check_their_inputs(cuda):
+    items = torch.zeros((6, 8), dtype=torch.int32, device=cuda)
+    valid = torch.zeros((8,), dtype=torch.int32, device=cuda)
+    for fn in (ps.pair_supports_cuda, ps.pair_supports_mxu_cuda):
+        with pytest.raises(TypeError):
+            fn(items.to(torch.int64), valid)
+        with pytest.raises(TypeError):
+            fn(items, valid.to(torch.uint8))
+        with pytest.raises(ValueError):
+            fn(items, valid[:4])
+        with pytest.raises(ValueError):
+            fn(items[0], valid)
+        with pytest.raises(ValueError):  # [6, 8] with the strides of a transpose
+            fn(torch.zeros_like(items).reshape(8, 6).t(), valid)
+        with pytest.raises(ValueError):
+            fn(items, valid.cpu())
+        with pytest.raises(ValueError):
+            fn(items.cpu(), valid.cpu())
+
+
+@pytest.mark.parametrize("use_mxu", [False, True])
+def test_pair_supports_on_the_card_never_reaches_a_plain_version(cuda, monkeypatch, use_mxu):
+    items = bm.from_reference(_words((45, 70), seed=6)).to(cuda)
+    valid = bm.from_reference(_valid(70, seed=7)).to(cuda)
+    want = ps.pair_supports_plain(items, valid)
+
+    def refuse(*args):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(ps, "pair_supports_plain", refuse)
+    monkeypatch.setattr(ps, "pair_supports_mxu_plain", refuse)
+    name = "pair_supports_mxu" if use_mxu else "pair_supports"
+    before = ops.kernel_launches()
+    got = ops.pair_supports(items, valid, use_mxu=use_mxu)
+    after = ops.kernel_launches()
+    assert torch.equal(got, want)
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == name) for k in after}
+
+
+def test_repl_min_profit_matrix_runs_b6(cuda):
+    """DB-Repl-Min's profit matrix on the card is B6, with the diagonal zeroed."""
+    from repro_torch.core import schedule
+
+    tids = bm.from_reference(_words((37, 64), seed=8)).to(cuda)
+    before = ops.kernel_launches()["pair_supports"]
+    got = schedule.pairwise_shared_transactions(tids)
+    assert ops.kernel_launches()["pair_supports"] == before + 1
+    want = schedule.pairwise_shared_transactions(tids.cpu())
+    np.testing.assert_array_equal(got, want)
+    assert not np.diag(got).any()
+
+
+def test_profiler_times_a_card_dispatch(cuda):
+    """With the profiler on, a dispatch on the card is timed with CUDA events
+    and priced against the H100 model read from the device."""
+    from repro_torch.obs import profile as obs_profile
+
+    prof = obs_profile.KernelProfiler()
+    items = bm.from_reference(_words((100, 4096), seed=10)).to(cuda)
+    valid = bm.from_reference(_valid(4096, seed=11)).to(cuda)
+    prof.enable()
+    out = prof.call("pair", {"I": 100, "W": 4096},
+                    lambda: ops.pair_supports(items, valid), items.device)
+    rep = prof.report()
+    assert torch.equal(out, ps.pair_supports_plain(items, valid))
+    assert rep["machine"]["name"] == "h100-sxm"
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert rep["machine"]["word_ops_peak"] == sms * 1.98e9 * 64
+    assert rep["families"]["pair"]["calls"] == 1
+    assert rep["families"]["pair"]["measured_ms"] > 0
