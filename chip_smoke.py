@@ -10,8 +10,11 @@ prints one JSON object on a line of its own:
   build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``,
            and the tensor-core MMA instructions in B2's SASS;
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
-           and the main path's shapes (B2 to B1's kernel too; B4 and B5 for Q,
-           F, T in {1, 7, 129, 1000} and 1, 4, 9 and 40 item words; B6 and B7,
+           and the main path's shapes (B1 also for K in {1, 7, 16, 17, 64}, I
+           in {1, 100, 129} and W around its vectors, chunks and block sizes;
+           B2 to B1's kernel too; B4 and B5 for Q, F, T in {1, 7, 129, 1000}
+           and 1, 4, 9 and 40 item words, B5 also for every word form, S in
+           {1, 2, 3} and T, F off its tiles; B6 and B7,
            and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W in {1, 2,
            33, 1025, 15625} under a valid mask with zero words and a ragged
            last word), with its device time, the plain version's, and the
@@ -52,6 +55,9 @@ prints one JSON object on a line of its own:
   profile  the main path, both cluster paths and the serve replay once more
            under ``torch.profiler``: the card's busy time and share of the
            wall, and the kernels' share of that.
+  launch_facts  how B1 and B5 were launched at each shape they were timed
+           at: grid, threads and cluster size, resident blocks an SM, waves,
+           registers and spilled bytes a thread.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -281,6 +287,10 @@ def phase_kernels(torch, dev):
                     (64, 24, 17), (17, 131, 4097), (9, 5, 1025), (0, 10, 8), (4, 0, 8),
                     (4, 10, 0), (1, 100, 15625), (16, 100, 64), (16, 100, 15625),
                     (64, 100, 15625)]
+    # B1's edges: W around its 4-word vectors, its chunks and the switch to
+    # 512-thread blocks, K and I around the 8 x 4 tile; clusters of 1 to 8
+    multi_shapes += [(k, i, w) for k in (1, 7, 16, 17, 64) for i in (1, 100, 129)
+                     for w in (1, 3, 5, 4096, 4097, 15625, 16384, 16385)]
     single_shapes = [(7, 2), (16, 1), (33, 9), (130, 33), (53, 300), (257, 4097),
                      (1, 1), (0, 9), (9, 0), (100, 64), (100, 15625)]
     for K, I, W in multi_shapes:
@@ -316,7 +326,10 @@ def phase_kernels(torch, dev):
         # B3 is B1 at K=1: the same product with one tidlist
         items, tids = args[0], args[1].reshape(K, W)
         lib = library_call(torch, items, tids, out.reshape(K, I))
+        facts = ms.launch_facts(items, tids) if kernel is ms.multi_extension_supports_cuda \
+            else None
         return {"name": name, "shape": {"K": K, "I": I, "W": W}, "max_abs_err": err,
+                "launch": facts,
                 "ms": device_ms(torch, lambda: kernel(*args), launches=100),
                 "plain_ms": device_ms(torch, lambda: plain(*args), launches=5, reps=3),
                 "library_ms": lib["ms"], "library": lib,
@@ -401,6 +414,10 @@ def check_sweeps(torch, words, dev, gen) -> int:
     block_shapes = [(b, t, f, iw) for b in (1, 2) for t in sizes for f in sizes
                     for iw in widths] + [(2, 0, 5, 4), (2, 4, 0, 4), (1, 33, 7, 0),
                                          (3, 50, 20, 300)]
+    # B5's edges: every word form (IW <= 4, <= 8, wider), T off the row tile
+    # and a block's rows, F off a block's itemsets, S = 1 to 3
+    block_shapes += [(b, t, f, iw) for b in (1, 2, 3) for iw in (1, 3, 4, 5, 8, 9, 33)
+                     for t, f in ((70001, 1025), (257, 3))]
     for S, T, F, IW in block_shapes:
         tx = words(S, T, IW) | words(S, T, IW)
         sets = sets_of(tx, F)
@@ -520,7 +537,7 @@ def time_block(torch, tx, sets, sms):
     err = int((out.long() - ds.block_itemset_supports_plain(tx, sets).long()).abs().max())
     b_ms, b_by, n_bytes, n_ops = block_bound(S, T, F, IW, sms)
     return {"name": "block_itemset_supports", "shape": {"S": S, "T": T, "F": F, "IW": IW},
-            "max_abs_err": err,
+            "max_abs_err": err, "launch": ds.launch_facts(tx, sets),
             "ms": device_ms(torch, lambda: ds.block_itemset_supports_cuda(tx, sets), launches=20),
             "plain_ms": device_ms(torch, lambda: ds.block_itemset_supports_plain(tx, sets),
                                   launches=2, reps=3),
@@ -741,7 +758,7 @@ def phase_stream(torch, dev, sms, thesis_masks):
           "cache_hit_rate": sm.cache.stats.hit_rate, "torn": res.torn,
           "delta_checks": res.delta_checks, "delta_mismatches": res.delta_mismatches,
           "wall_s": wall_s, "peak_mem_bytes": peak, "launches": launches, "timed": timings})
-    return launches, timings[1]
+    return launches, timings
 
 
 def phase_profile(torch, dev, dense, serve_run):
@@ -1105,9 +1122,14 @@ def main() -> None:
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
     launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
     fi = serve_run.fi_index
-    launches_stream, stream_timing = phase_stream(torch, dev, sms, fi.masks[: fi.n_fis])
+    launches_stream, stream_timings = phase_stream(torch, dev, sms, fi.masks[: fi.n_fis])
+    stream_timing = stream_timings[1]
     launches["block_itemset_supports"] = launches_stream["block_itemset_supports"]
     phase_profile(torch, dev, dense, serve_run)
+
+    emit({"phase": "launch_facts", "nvidia_smi": smi,
+          "shapes": [{"name": t["name"], "shape": t["shape"], **t["launch"]}
+                     for t in timings + stream_timings if t.get("launch")]})
 
     # each kernel at the shape where its path spends its time: B4 at the rules
     # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index, B6 on

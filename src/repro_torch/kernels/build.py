@@ -34,10 +34,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of the sources: argument types of each (all return int).
 SIGNATURES = {
     "multi_extension_supports": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "multi_extension_supports_facts": (_P, _P, _I, _I, _I, _I, _P),
     "extension_supports": (_P, _P, _P, _I, _I, _P),
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
     "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),
     "block_itemset_supports": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "block_itemset_supports_facts": (_P, _I, _I, _I, _I, _I, _P),
     "pair_supports": (_P, _P, _P, _I, _I, _I, _P),
     "pair_supports_mxu": (_P, _P, _P, _I, _I, _I, _P),
 }

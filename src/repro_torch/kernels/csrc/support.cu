@@ -3,31 +3,49 @@
 //   B1  multi_extension_supports:  S[k, i] = sum_w popc(items[i, w] & tids[k, w])
 //   B3  extension_supports:        S[i]    = sum_w popc(items[i, w] & tid[w])
 //
+// They replace the TPU kernels repro/kernels/multi_support.py::
+// multi_extension_supports_pallas and repro/kernels/bitmap_support.py::
+// extension_supports_pallas.
 // Words are the port's packed bitmaps (bit t % 32 of word t / 32), read as
 // uint32.  Outputs are exact int32 counts.  Each entry point has a plain C
 // interface for ctypes: it launches on the caller's stream, allocates nothing,
-// and returns cudaGetLastError() so a refused launch is reported at once.
+// and returns the launch's error, so a refused launch is reported at once.
 //
 // The TPU kernels walk W as the sequential minor grid axis with the sum held
-// in the output block.  Here W is a loop inside the block.  In B1 the blocks
-// of one output run in parallel over W chunks, adding their partial counts
-// with integer atomics (exact and order-free); in B3 a block owns a row.
+// in the output block.  Here W is a loop inside the block.  In B1 an output
+// tile's W is cut into chunks, one block each, and the blocks of one tile
+// form a thread-block cluster: they add their partial counts through
+// distributed shared memory, and the cluster's first block stores each count
+// once, so B1 needs neither a zeroed output nor atomics.  In B3 a block owns
+// a row.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // B3
 constexpr int kWarps = kThreads / 32;
 // B1 register tile: each thread keeps kPrefixTile x kItemTile counters, so a
 // word of an item row is loaded once for kPrefixTile prefixes and a word of a
-// prefix tidlist once for kItemTile items.
+// prefix tidlist once for kItemTile items.  32 counters: one per lane once a
+// warp has reduced them.
 constexpr int kItemTile = 4;
 constexpr int kPrefixTile = 8;
-// B1 grid shaping: a W chunk is at least kMinChunk words (4 per thread), and
-// the chunks are cut small enough to give about two blocks per SM.
-constexpr int kMinChunk = 4 * kThreads;
-constexpr int kBlocksPerSm = 2;
+constexpr int kPairs = kPrefixTile * kItemTile;
+static_assert(kPairs == 32, "a warp reduces its 32 counters to one a lane");
+// B1 blocks, both at most 128 registers a thread: wide ones of 512 threads,
+// one an SM (so a cluster cannot stack two of its blocks on one SM, and each
+// SM has 16 warps to hide the loads), where W gives each thread 4 words or
+// more; narrow ones of 128 threads, four an SM, for short rows, where a wide
+// block would leave most of its threads idle.
+constexpr int kWide = 512;
+constexpr int kNarrow = 128;
+// B1 clusters: at most 8 blocks (the portable cluster size), each with a chunk
+// of at least 4 words a thread.
+constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
@@ -35,74 +53,116 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
-// grid = (W chunks, prefix tiles, item tiles); block = kThreads threads that
-// stride over the chunk with coalesced 32-bit loads.
-__global__ void __launch_bounds__(kThreads)
+// Sums v[0..31] over the warp and leaves, on lane l, the sum of v[l] in v[0]:
+// at each step S (16, 8, 4, 2, 1) a lane keeps the half of its counters that
+// bit S of its lane index selects and sends the other half to its partner,
+// 31 shuffles in all (32 separate warp sums would take 160).  The steps are
+// a template recursion so that every index is a constant and v stays in
+// registers.
+template <int S>
+__device__ __forceinline__ void warp_transpose_sum(int (&v)[kPairs], int lane) {
+  const bool upper = lane & S;
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    const int send = upper ? v[j] : v[j + S];
+    const int keep = upper ? v[j + S] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, S);
+  }
+  if constexpr (S > 1) warp_transpose_sum<S / 2>(v, lane);
+}
+
+// grid = (cluster, prefix tiles, item tiles), clusters of (cluster, 1, 1):
+// block `rank` of a cluster sweeps words [rank * chunk, (rank + 1) * chunk)
+// of its tile.  kVec: every row starts on a 16-byte boundary and chunk is a
+// multiple of 4, so a thread reads 4 words of each row with one 128-bit load.
+template <int kT, bool kVec>
+__global__ void __launch_bounds__(kT, kWide / kT)
 multi_support_kernel(const uint32_t* __restrict__ items,
                      const uint32_t* __restrict__ tids,
                      int32_t* __restrict__ out, int K, int I, int W, int chunk) {
-  const int i0 = blockIdx.z * kItemTile;
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
   const int k0 = blockIdx.y * kPrefixTile;
-  const int w_begin = blockIdx.x * chunk;
+  const int i0 = blockIdx.z * kItemTile;
+  const int w_begin = static_cast<int>(rank) * chunk;
   const int w_end = min(W, w_begin + chunk);
 
-  // Ragged edges: rows past K or I read as zero words and are never stored.
+  // Ragged edges: rows past K or I read the last row again; their counts
+  // are never stored.
   const uint32_t* item_row[kItemTile];
-  bool item_ok[kItemTile];
 #pragma unroll
-  for (int ii = 0; ii < kItemTile; ++ii) {
-    item_ok[ii] = i0 + ii < I;
-    item_row[ii] = items + static_cast<size_t>(item_ok[ii] ? i0 + ii : 0) * W;
-  }
+  for (int ii = 0; ii < kItemTile; ++ii)
+    item_row[ii] = items + static_cast<size_t>(min(i0 + ii, I - 1)) * W;
   const uint32_t* tid_row[kPrefixTile];
-  bool tid_ok[kPrefixTile];
-#pragma unroll
-  for (int kk = 0; kk < kPrefixTile; ++kk) {
-    tid_ok[kk] = k0 + kk < K;
-    tid_row[kk] = tids + static_cast<size_t>(tid_ok[kk] ? k0 + kk : 0) * W;
-  }
-
-  int acc[kPrefixTile][kItemTile];
 #pragma unroll
   for (int kk = 0; kk < kPrefixTile; ++kk)
-#pragma unroll
-    for (int ii = 0; ii < kItemTile; ++ii) acc[kk][ii] = 0;
+    tid_row[kk] = tids + static_cast<size_t>(min(k0 + kk, K - 1)) * W;
 
-  for (int w = w_begin + threadIdx.x; w < w_end; w += kThreads) {
-    uint32_t a[kItemTile];
+  int acc[kPairs];
 #pragma unroll
-    for (int ii = 0; ii < kItemTile; ++ii) a[ii] = item_ok[ii] ? __ldg(item_row[ii] + w) : 0u;
+  for (int p = 0; p < kPairs; ++p) acc[p] = 0;
+
+  if constexpr (kVec) {
+    for (int w = w_begin + 4 * threadIdx.x; w < w_end; w += 4 * kT) {
+      uint4 a[kItemTile];
 #pragma unroll
-    for (int kk = 0; kk < kPrefixTile; ++kk) {
-      const uint32_t t = tid_ok[kk] ? __ldg(tid_row[kk] + w) : 0u;
+      for (int ii = 0; ii < kItemTile; ++ii)
+        a[ii] = __ldg(reinterpret_cast<const uint4*>(item_row[ii] + w));
 #pragma unroll
-      for (int ii = 0; ii < kItemTile; ++ii) acc[kk][ii] += __popc(a[ii] & t);
+      for (int kk = 0; kk < kPrefixTile; ++kk) {
+        const uint4 t = __ldg(reinterpret_cast<const uint4*>(tid_row[kk] + w));
+#pragma unroll
+        for (int ii = 0; ii < kItemTile; ++ii)
+          acc[kk * kItemTile + ii] += __popc(a[ii].x & t.x) + __popc(a[ii].y & t.y) +
+                                      __popc(a[ii].z & t.z) + __popc(a[ii].w & t.w);
+      }
+    }
+  } else {
+    for (int w = w_begin + threadIdx.x; w < w_end; w += kT) {
+      uint32_t a[kItemTile];
+#pragma unroll
+      for (int ii = 0; ii < kItemTile; ++ii) a[ii] = __ldg(item_row[ii] + w);
+#pragma unroll
+      for (int kk = 0; kk < kPrefixTile; ++kk) {
+        const uint32_t t = __ldg(tid_row[kk] + w);
+#pragma unroll
+        for (int ii = 0; ii < kItemTile; ++ii) acc[kk * kItemTile + ii] += __popc(a[ii] & t);
+      }
     }
   }
 
-  // Block reduction: warp shuffles, one partial per warp in shared memory,
-  // then one atomic add per output and block.
-  __shared__ int partial[kWarps][kPrefixTile * kItemTile];
+  // Warp, then block: lane l of each warp holds counter l, the warps' sums
+  // meet in shared memory, and block_sum[p] is the block's count of pair p.
+  __shared__ int warp_sums[kT / 32][kPairs];
+  __shared__ int block_sum[kPairs];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int kk = 0; kk < kPrefixTile; ++kk)
-#pragma unroll
-    for (int ii = 0; ii < kItemTile; ++ii) {
-      const int v = warp_sum(acc[kk][ii]);
-      if (lane == 0) partial[warp][kk * kItemTile + ii] = v;
-    }
+  warp_transpose_sum<16>(acc, lane);
+  warp_sums[threadIdx.x >> 5][lane] = acc[0];
   __syncthreads();
-  if (threadIdx.x < kPrefixTile * kItemTile) {
-    const int k = k0 + threadIdx.x / kItemTile;
-    const int i = i0 + threadIdx.x % kItemTile;
-    if (k < K && i < I) {
-      int s = 0;
+  int s = 0;
+  if (threadIdx.x < kPairs) {
 #pragma unroll
-      for (int wp = 0; wp < kWarps; ++wp) s += partial[wp][threadIdx.x];
-      atomicAdd(out + static_cast<size_t>(k) * I + i, s);
-    }
+    for (int wp = 0; wp < kT / 32; ++wp) s += warp_sums[wp][threadIdx.x];
+    block_sum[threadIdx.x] = s;
   }
+  const int k = k0 + threadIdx.x / kItemTile;
+  const int i = i0 + threadIdx.x % kItemTile;
+  const bool store = threadIdx.x < kPairs && k < K && i < I;
+  if (cluster.num_blocks() == 1) {  // the block holds the whole count
+    if (store) out[static_cast<size_t>(k) * I + i] = s;
+    return;
+  }
+  // Cluster: the first block adds every block's counts from its shared
+  // memory and stores each output once.  The second barrier keeps every block
+  // (and its shared memory) alive until those reads are done.
+  cluster.sync();
+  if (rank == 0 && store) {
+    s = 0;
+    for (unsigned r = 0; r < cluster.num_blocks(); ++r)
+      s += *cluster.map_shared_rank(&block_sum[threadIdx.x], r);
+    out[static_cast<size_t>(k) * I + i] = s;
+  }
+  cluster.sync();
 }
 
 // B3, a GEMV shape: one block per item row.  Its threads stride the row with
@@ -129,33 +189,145 @@ single_support_kernel(const uint32_t* __restrict__ items,
   }
 }
 
+long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
+
+// How B1 is launched for one call.
+struct MultiPlan {
+  int threads, k_tiles, i_tiles, cluster, chunk;
+  bool vec;
+};
+
+const void* multi_kernel(int threads, bool vec) {
+  if (threads == kWide)
+    return vec ? reinterpret_cast<const void*>(multi_support_kernel<kWide, true>)
+               : reinterpret_cast<const void*>(multi_support_kernel<kWide, false>);
+  return vec ? reinterpret_cast<const void*>(multi_support_kernel<kNarrow, true>)
+             : reinterpret_cast<const void*>(multi_support_kernel<kNarrow, false>);
+}
+
+cudaLaunchConfig_t multi_config(const MultiPlan& p, cudaStream_t s, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.cluster, p.k_tiles, p.i_tiles);
+  cfg.blockDim = dim3(p.threads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = p.cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Clusters of `cluster` blocks of the plan's kernel that fit on the current
+// device at once, queried once per device, kernel and cluster size.
+int active_clusters(const MultiPlan& p, int cluster, cudaError_t* err) {
+  constexpr int kDevices = 64;
+  static int known[2][2][kDevices][kMaxCluster + 1];
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  int* slot = dev < kDevices ? &known[p.threads == kWide][p.vec][dev][cluster] : nullptr;
+  if (slot && *slot > 0) return *slot;
+  MultiPlan probe = p;
+  probe.cluster = cluster;
+  probe.k_tiles = probe.i_tiles = 1;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = multi_config(probe, nullptr, &attr);
+  int n = 0;
+  *err = cudaOccupancyMaxActiveClusters(&n, multi_kernel(p.threads, p.vec), &cfg);
+  if (*err == cudaSuccess && slot) *slot = n;
+  return n;
+}
+
+// Wide blocks where W gives each thread 4 words, else narrow ones.  One
+// cluster per output tile, sized so
+// that every cluster is resident at once (one wave): the kernel lasts as
+// long as the SM with most blocks, ceil(tiles * C / sms) blocks of 1/C of a
+// tile's work each, so among the cluster sizes C that fit in one wave take
+// the one that makes this least, the smaller on a tie (a smaller
+// reduction); where not even single blocks fit in one wave, C = 1.
+cudaError_t plan_multi(const void* items, const void* tids, int K, int I, int W, int sms,
+                       MultiPlan* p) {
+  p->k_tiles = static_cast<int>(ceil_div(K, kPrefixTile));
+  p->i_tiles = static_cast<int>(ceil_div(I, kItemTile));
+  p->vec = W % 4 == 0 &&
+           (reinterpret_cast<uintptr_t>(items) | reinterpret_cast<uintptr_t>(tids)) % 16 == 0;
+  const long long tiles = static_cast<long long>(p->k_tiles) * p->i_tiles;
+  const long long n_sm = sms > 0 ? sms : 1;
+  p->threads = W >= 4 * kWide ? kWide : kNarrow;
+  const int most = max(1, min(kMaxCluster, W / (4 * p->threads)));
+  int best = 1;
+  cudaError_t err = cudaSuccess;
+  for (int c = 2; c <= most; ++c) {
+    const int fit = active_clusters(*p, c, &err);
+    if (err != cudaSuccess) return err;
+    if (tiles > fit) break;
+    if (ceil_div(tiles * c, n_sm) * best < ceil_div(tiles * best, n_sm) * c) best = c;
+  }
+  p->cluster = best;
+  p->chunk = static_cast<int>(ceil_div(ceil_div(W, best), 4) * 4);
+  return cudaSuccess;
+}
+
+template <int kT, bool kVec>
+cudaError_t launch_multi(const cudaLaunchConfig_t& cfg, const void* items, const void* tids,
+                         void* out, int K, int I, int W, int chunk) {
+  return cudaLaunchKernelEx(&cfg, multi_support_kernel<kT, kVec>,
+                            static_cast<const uint32_t*>(items),
+                            static_cast<const uint32_t*>(tids), static_cast<int32_t*>(out), K,
+                            I, W, chunk);
+}
+
 }  // namespace
 
 extern "C" {
 
 // items uint32[I, W], tids uint32[K, W] -> out int32[K, I] (row-major, contiguous).
-// `sms` is the card's SM count, which the caller looks up once, so a launch
-// makes no device query.
+// `sms` is the card's SM count, which the caller looks up once.
 int multi_extension_supports(const void* items, const void* tids, void* out,
                              int K, int I, int W, int sms, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t zeroed =
-      cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(K) * I, s);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  if (K > 0 && I > 0 && W > 0) {
-    const int k_tiles = (K + kPrefixTile - 1) / kPrefixTile;
-    const int i_tiles = (I + kItemTile - 1) / kItemTile;
-    const int tiles = k_tiles * i_tiles;
-    const int want = (kBlocksPerSm * max(sms, 1) + tiles - 1) / tiles;
-    const int most = (W + kMinChunk - 1) / kMinChunk;
-    const int splits = max(1, min(want, most));
-    const int chunk = (W + splits - 1) / splits;
-    const dim3 grid(splits, k_tiles, i_tiles);
-    multi_support_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(items), static_cast<const uint32_t*>(tids),
-        static_cast<int32_t*>(out), K, I, W, chunk);
-  }
+  if (K <= 0 || I <= 0) return static_cast<int>(cudaSuccess);
+  MultiPlan p;
+  cudaError_t err = plan_multi(items, tids, K, I, W, sms, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = multi_config(p, static_cast<cudaStream_t>(stream), &attr);
+  if (p.threads == kWide)
+    err = p.vec ? launch_multi<kWide, true>(cfg, items, tids, out, K, I, W, p.chunk)
+                : launch_multi<kWide, false>(cfg, items, tids, out, K, I, W, p.chunk);
+  else
+    err = p.vec ? launch_multi<kNarrow, true>(cfg, items, tids, out, K, I, W, p.chunk)
+                : launch_multi<kNarrow, false>(cfg, items, tids, out, K, I, W, p.chunk);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What multi_extension_supports launches for these operands, into facts[12]:
+// grid x, y, z, threads a block, cluster size, chunk words, 128-bit loads (0
+// or 1), resident blocks an SM, clusters resident at once, waves, registers a
+// thread, local (spilled) bytes a thread.
+int multi_extension_supports_facts(const void* items, const void* tids, int K, int I, int W,
+                                   int sms, int* facts) {
+  MultiPlan p;
+  cudaError_t err = plan_multi(items, tids, K, I, W, sms, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* kernel = multi_kernel(p.threads, p.vec);
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, 0);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int fit = active_clusters(p, p.cluster, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long tiles = static_cast<long long>(p.k_tiles) * p.i_tiles;
+  const int values[12] = {p.cluster, p.k_tiles, p.i_tiles, p.threads, p.cluster, p.chunk,
+                          p.vec, per_sm, fit, static_cast<int>(ceil_div(tiles, max(fit, 1))),
+                          fa.numRegs, static_cast<int>(fa.localSizeBytes)};
+  for (int j = 0; j < 12; ++j) facts[j] = values[j];
+  return static_cast<int>(cudaSuccess);
 }
 
 // items uint32[I, W], tid uint32[W] -> out int32[I].

@@ -15,23 +15,29 @@ On the card: the test needs S·T·F·IW word operations on 4·IW·(S·T+F) input
 bytes, so it is bound by operations, not bytes.  The zero test needs no
 population count: f ⊆ t iff the OR over the words of ``f & ~t`` is zero, one
 LOP3 a word on the 32-bit integer pipe.  The design
-(``csrc/delta_support.cu``): a thread keeps four itemsets' words in
-registers; a block stages 64 rows at a time in shared memory, read by every
-thread at once as 16-byte vectors, so one staged row serves four itemsets;
-T is split over blocks to fill the SMs, and one integer atomic per itemset
-and block adds the counts, exact in any order.  Rows are bounded by T, so
-the TPU kernel's sentinel word (it pads rows to tiles) is not needed: the
-empty itemset counts every real row.
+(``csrc/delta_support.cu``) spends the instruction slots on those LOP3s: the word
+count is a template parameter (at most 4 words, the thesis database's 100
+items among them, or 8, in straight-line code; wider masks in a loop); a
+thread keeps 32 itemset words in registers (8 itemsets of 4 words); a block
+stages tiles of rows in two shared buffers with ``cp.async``, so the next
+tile lands while the current one is compared, and every thread reads the
+same row at once as 16-byte broadcasts; the grid is as many blocks as the
+card holds at once, each with an equal share of the flattened (itemset
+tile, block, row) range, and one integer atomic per itemset and segment
+adds the counts, exact in any order.  Rows are bounded by T, so the TPU
+kernel's sentinel word (it pads rows to tiles) is not needed: the empty
+itemset counts every real row.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.multi_support import _sm_count
 
-# grid.z is at most 65535 blocks; one staged row holds at most 8192 words
-MAX_S = 65535
+# one staged row holds at most 8192 words
 MAX_IW = 8192
 # elements of the plain version's [rows, F] temporaries
 _PLAIN_CHUNK = 1 << 24
@@ -72,8 +78,8 @@ def block_itemset_supports_cuda(tx_blocks: torch.Tensor, fi_masks: torch.Tensor)
         raise ValueError("block_itemset_supports_cuda takes contiguous tensors")
     S, T, IW = tx_blocks.shape
     F = fi_masks.shape[0]
-    if S > MAX_S or IW > MAX_IW:
-        raise ValueError(f"S={S} or IW={IW} exceeds ({MAX_S}, {MAX_IW})")
+    if IW > MAX_IW:
+        raise ValueError(f"IW={IW} exceeds {MAX_IW}")
     if S * T * F == 0:  # no pair of a row and an itemset: no launch
         return torch.zeros((S, F), dtype=torch.int32, device=tx_blocks.device)
     out = torch.empty((S, F), dtype=torch.int32, device=tx_blocks.device)
@@ -87,5 +93,24 @@ def block_itemset_supports_cuda(tx_blocks: torch.Tensor, fi_masks: torch.Tensor)
     block_itemset_supports_cuda.launches += 1
     return out
 
+
+def launch_facts(tx_blocks: torch.Tensor, fi_masks: torch.Tensor) -> dict:
+    """How B5 is launched for these operands (CUDA tensors of the kernel's
+    shapes, no launch made): its grid (one wave by construction), word form,
+    itemsets a thread, rows a block and a staged tile, resident blocks an
+    SM, and the kernel's registers and spilled (local) bytes a thread."""
+    (S, T, IW), F = tx_blocks.shape, fi_masks.shape[0]
+    facts = (ctypes.c_int * len(_FACTS))()
+    with torch.cuda.device(tx_blocks.device):
+        status = build.library().block_itemset_supports_facts(
+            tx_blocks.data_ptr(), S, T, F, IW, _sm_count(tx_blocks.device.index),
+            ctypes.addressof(facts),
+        )
+    build.check(status, "block_itemset_supports_facts")
+    return dict(zip(_FACTS, facts))
+
+
+_FACTS = ("grid_x", "threads", "word_form", "sets_per_thread", "rows_per_block", "row_tile",
+          "smem_bytes", "vec128", "blocks_per_sm", "registers", "local_bytes")
 
 block_itemset_supports_cuda.launches = 0

@@ -16,15 +16,19 @@ On the card: K·I·W population counts, plus an AND and an ADD each, over
 other 32-bit integer operations, so the POPC pipe bounds it (6.0 µs at the
 main shape, 132 SMs at 1.98 GHz) before the memory does (2.2 µs at 3.35
 TB/s); the 6 MB item slab also stays in the 50 MB L2 from one trip to the
-next.  The design (``csrc/support.cu``,
-``multi_support_kernel``): a block owns a tile of 4 items × 8 prefixes and a
-chunk of W; each thread strides the chunk with coalesced 32-bit loads and
-keeps the 32 counts in registers, so one loaded word serves 8 (item) or 4
-(prefix) popcounts.  Warp shuffles and shared memory reduce the block, and
-one integer atomic per output adds the chunk's count.  The W axis,
-sequential on the TPU, is split over blocks to fill the 132 SMs (about two
-blocks per SM); integer atomics keep the result exact whatever order the
-chunks land in.
+next.  At that size the fixed costs of a launch weigh as much as the
+counting, so the design (``csrc/support.cu``, ``multi_support_kernel``)
+cuts them: a block owns a tile of 4 items × 8 prefixes and a chunk of W;
+each thread strides the chunk (with 128-bit loads where every row starts on
+a 16-byte boundary, W a multiple of 4) and keeps the 32 counts in
+registers, so one loaded word serves 8 (item) or 4 (prefix) popcounts.  The
+chunks of one tile are the blocks of one thread-block cluster (at most 8):
+a warp reduces its 32 counts in 31 shuffles, the block in shared memory,
+and the cluster's first block adds the blocks' counts through distributed
+shared memory and stores each output once, so there is no zeroing launch
+and no atomic.  Blocks are 512 threads, one an SM, where W gives each
+thread 4 words, else 128; the cluster size is chosen so that every cluster
+is resident at once and the SM with most blocks carries the least work.
 
 B2 computes the same ``S`` on the tensor cores, as its TPU kernel
 ``multi_extension_supports_mxu_pallas`` (``_mxu_kernel``, ``pl.pallas_call``
@@ -39,6 +43,7 @@ design and bound are in the source's note.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -156,6 +161,25 @@ def multi_extension_supports_mxu_cuda(
     multi_extension_supports_mxu_cuda.launches += launched
     return out
 
+
+def launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
+    """How B1 is launched for these operands (CUDA tensors, no launch made):
+    its grid, cluster size, resident blocks an SM and clusters at once,
+    waves, and the kernel's registers and spilled (local) bytes a thread."""
+    _check_inputs("launch_facts", item_bits, prefix_tids, MAX_K, MAX_I)
+    K, (I, W) = prefix_tids.shape[0], item_bits.shape
+    facts = (ctypes.c_int * len(_FACTS))()
+    with torch.cuda.device(item_bits.device):
+        status = build.library().multi_extension_supports_facts(
+            item_bits.data_ptr(), prefix_tids.data_ptr(), K, I, W,
+            _sm_count(item_bits.device.index), ctypes.addressof(facts),
+        )
+    build.check(status, "multi_extension_supports_facts")
+    return dict(zip(_FACTS, facts))
+
+
+_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words", "vec128",
+          "blocks_per_sm", "clusters_resident", "waves", "registers", "local_bytes")
 
 multi_extension_supports_cuda.launches = 0
 multi_extension_supports_mxu_cuda.launches = 0
