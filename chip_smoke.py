@@ -11,9 +11,9 @@ prints one JSON object on a line of its own:
            and the tensor-core MMA instructions in B2's SASS;
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
            and the main path's shapes (B1 also for K in {1, 7, 16, 17, 64}, I
-           in {1, 100, 129} and W around its vectors, chunks and block sizes;
+           in {1, 100, 129} and W around its chunks and block sizes;
            B2 to B1's kernel too; B4 and B5 for Q, F, T in {1, 7, 129, 1000}
-           and 1, 4, 9 and 40 item words, B5 also for every word form, S in
+           and 1, 4, 9 and 40 item words, B5 also for both word forms, S in
            {1, 2, 3} and T, F off its tiles; B6 and B7,
            and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W in {1, 2,
            33, 1025, 15625} under a valid mask with zero words and a ragged
@@ -287,8 +287,8 @@ def phase_kernels(torch, dev):
                     (64, 24, 17), (17, 131, 4097), (9, 5, 1025), (0, 10, 8), (4, 0, 8),
                     (4, 10, 0), (1, 100, 15625), (16, 100, 64), (16, 100, 15625),
                     (64, 100, 15625)]
-    # B1's edges: W around its 4-word vectors, its chunks and the switch to
-    # 512-thread blocks, K and I around the 8 x 4 tile; clusters of 1 to 8
+    # B1's edges: W around its chunks and the switch to 512-thread blocks, K
+    # and I around the 8 x 4 tile; clusters of 1 to 8
     multi_shapes += [(k, i, w) for k in (1, 7, 16, 17, 64) for i in (1, 100, 129)
                      for w in (1, 3, 5, 4096, 4097, 15625, 16384, 16385)]
     single_shapes = [(7, 2), (16, 1), (33, 9), (130, 33), (53, 300), (257, 4097),
@@ -354,7 +354,7 @@ def phase_kernels(torch, dev):
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "int8_ops": n_ops}
 
     timings = []
-    for K, W in ((16, 15625), (16, 64), (1, 15625), (64, 15625)):
+    for K, W in ((16, 15625), (16, 64), (16, 16384), (1, 15625), (64, 15625)):
         timings.append(timed("multi_extension_supports", ms.multi_extension_supports_cuda,
                              ms.multi_extension_supports_plain, K, 100, W,
                              (words(100, W), words(K, W))))
@@ -414,7 +414,7 @@ def check_sweeps(torch, words, dev, gen) -> int:
     block_shapes = [(b, t, f, iw) for b in (1, 2) for t in sizes for f in sizes
                     for iw in widths] + [(2, 0, 5, 4), (2, 4, 0, 4), (1, 33, 7, 0),
                                          (3, 50, 20, 300)]
-    # B5's edges: every word form (IW <= 4, <= 8, wider), T off the row tile
+    # B5's edges: both word forms (IW <= 4, wider), T off the row tile
     # and a block's rows, F off a block's itemsets, S = 1 to 3
     block_shapes += [(b, t, f, iw) for b in (1, 2, 3) for iw in (1, 3, 4, 5, 8, 9, 33)
                      for t, f in ((70001, 1025), (257, 3))]

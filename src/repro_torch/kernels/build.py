@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu", CSRC / "subset_query.cu",
            CSRC / "delta_support.cu", CSRC / "pair_support.cu")
 # included by the sources: part of what the library is built from
-HEADERS = (CSRC / "bmma.cuh",)
+HEADERS = (CSRC / "bmma.cuh", CSRC / "occupancy.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -34,7 +34,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points of the sources: argument types of each (all return int).
 SIGNATURES = {
     "multi_extension_supports": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "multi_extension_supports_facts": (_P, _P, _I, _I, _I, _I, _P),
+    "multi_extension_supports_facts": (_I, _I, _I, _I, _P),
     "extension_supports": (_P, _P, _P, _I, _I, _P),
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
     "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),

@@ -17,16 +17,15 @@
 // what the LOP3s need:
 //
 // - The word count is a template parameter: rows of at most 4 words (every
-//   mask over at most 128 items, the thesis database's 100 among them) or 8
-//   are compared in straight-line code, with no test of the width; wider
-//   masks take a general loop.
+//   mask over at most 128 items, the thesis database's 100 among them) are
+//   compared in straight-line code, with no test of the width; wider masks
+//   take a general loop.
 // - A thread holds 32 itemset words in registers: 8 itemsets of up to 4
-//   words, or 4 of up to 8.  One row read from shared memory (a 16-byte
-//   broadcast, the same address for every thread) serves all of them, and
-//   the zero test folds into the last LOP3 with a predicated add.  The
-//   general form takes 4 itemsets' words 8 at a time, reloaded for each
-//   tile of 32 rows, and keeps one bit per row and itemset for a row that
-//   lacks a word.
+//   words.  One row read from shared memory (a 16-byte broadcast, the same
+//   address for every thread) serves all of them, and the zero test folds
+//   into the last LOP3 with a predicated add.  The general form takes 4
+//   itemsets' words 8 at a time, reloaded for each tile of 32 rows, and
+//   keeps one bit per row and itemset for a row that lacks a word.
 // - Rows are staged with cp.async into two shared buffers: the next tile of
 //   rows lands while the current one is compared.
 // - The grid is whole waves: as many blocks as fit on the card at once (the
@@ -42,6 +41,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -50,11 +51,10 @@ constexpr int kMaxRowTile = 256;   // rows of one staged tile
 constexpr int kStageWords = 4096;  // words of one of the two row buffers (16 KB)
 constexpr int kMinRows = 64;       // rows a block takes at least
 constexpr int kMaskRows = 32;      // rows of a tile in the general form: one mask bit each
-constexpr int kDefaultSmem = 48 * 1024;
 
-// NW = 4 or 8: every row is read as NW words (the words past IW are zero in
-// shared memory, and zero in the itemset, so they add no bit to the OR).
-// NW = 0: any IW, rows padded to a multiple of 4 words.
+// NW = 4: every row is read as 4 words (the words past IW are zero in shared
+// memory, and zero in the itemset, so they add no bit to the OR).  NW = 0:
+// any IW, rows padded to a multiple of 4 words.
 template <int NW>
 struct Form {
   static constexpr int kWords = NW ? NW : 8;          // itemset words in registers
@@ -124,18 +124,6 @@ __device__ __forceinline__ void compare(const uint32_t* tile, int n, int IW, int
       for (int j = 0; j < J; ++j)
         count_if_zero(count[j], (words[j][0] & ~x.x) | (words[j][1] & ~x.y) |
                                     (words[j][2] & ~x.z) | (words[j][3] & ~x.w));
-    }
-  } else if constexpr (NW == 8) {
-#pragma unroll 2
-    for (int r = 0; r < n; ++r) {
-      const uint4 x = rows[2 * r];
-      const uint4 y = rows[2 * r + 1];
-#pragma unroll
-      for (int j = 0; j < J; ++j)
-        count_if_zero(count[j], (words[j][0] & ~x.x) | (words[j][1] & ~x.y) |
-                                    (words[j][2] & ~x.z) | (words[j][3] & ~x.w) |
-                                    (words[j][4] & ~y.x) | (words[j][5] & ~y.y) |
-                                    (words[j][6] & ~y.z) | (words[j][7] & ~y.w));
     }
   } else {
     // Any width, words in chunks of 8: the chunk's words of the J itemsets
@@ -248,11 +236,9 @@ block_support_kernel(const uint32_t* __restrict__ tx, const uint32_t* __restrict
   }
 }
 
-long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
-
 // How B5 is launched for one call.
 struct BlockPlan {
-  int form;  // NW: 4, 8 or 0
+  int form;  // NW: 4 or 0
   int IWp, row_tile, blocks_per_sm, blocks;
   long long per_block;
   size_t smem;
@@ -268,10 +254,6 @@ cudaError_t plan_block(const void* tx, int S, int T, int F, int IW, int sms, Blo
     p->form = 4;
     p->kernel = reinterpret_cast<const void*>(block_support_kernel<4>);
     tile = Form<4>::kTile;
-  } else if (IW <= 8) {
-    p->form = 8;
-    p->kernel = reinterpret_cast<const void*>(block_support_kernel<8>);
-    tile = Form<8>::kTile;
   } else {
     p->form = 0;
     p->kernel = reinterpret_cast<const void*>(block_support_kernel<0>);
@@ -281,14 +263,7 @@ cudaError_t plan_block(const void* tx, int S, int T, int F, int IW, int sms, Blo
   p->row_tile = max(1, min(p->form ? kMaxRowTile : kMaskRows, kStageWords / p->IWp));
   p->smem = 2 * sizeof(uint32_t) * static_cast<size_t>(p->row_tile) * p->IWp;
   p->vec16 = IW == p->IWp && reinterpret_cast<uintptr_t>(tx) % 16 == 0;
-  cudaError_t err = cudaSuccess;
-  if (p->smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(p->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(p->smem));
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&p->blocks_per_sm, p->kernel, kThreads,
-                                                      p->smem);
+  const cudaError_t err = resident(p->kernel, kThreads, p->smem, 0, &p->blocks_per_sm);
   if (err != cudaSuccess) return err;
   const long long total = ceil_div(F, tile) * S * T;
   const long long wave = static_cast<long long>(max(sms, 1)) * max(p->blocks_per_sm, 1);
@@ -323,12 +298,11 @@ int block_itemset_supports(const void* tx, const void* fi, void* out, int S, int
   err = plan_block(tx, S, T, F, IW, sms, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.form == 4) return static_cast<int>(launch_block<4>(p, tx, fi, out, S, T, F, IW, s));
-  if (p.form == 8) return static_cast<int>(launch_block<8>(p, tx, fi, out, S, T, F, IW, s));
   return static_cast<int>(launch_block<0>(p, tx, fi, out, S, T, F, IW, s));
 }
 
 // What block_itemset_supports launches for these operands, into facts[11]:
-// blocks (grid x), threads a block, word form (4, 8 or 0 for any width),
+// blocks (grid x), threads a block, word form (4, or 0 for any width),
 // itemsets a thread, rows a block, rows a staged tile, dynamic shared bytes,
 // 16-byte staging (0 or 1), resident blocks an SM, registers a thread, local
 // (spilled) bytes a thread.  The grid is one wave by construction.
@@ -340,7 +314,7 @@ int block_itemset_supports_facts(const void* tx, int S, int T, int F, int IW, in
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, p.kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int sets = p.form == 4 ? Form<4>::kSets : p.form == 8 ? Form<8>::kSets : Form<0>::kSets;
+  const int sets = p.form == 4 ? Form<4>::kSets : Form<0>::kSets;
   const int values[11] = {p.blocks, kThreads, p.form, sets,
                           static_cast<int>(p.per_block), p.row_tile, static_cast<int>(p.smem),
                           p.vec16, p.blocks_per_sm, fa.numRegs,

@@ -22,6 +22,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "occupancy.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -73,9 +75,8 @@ __device__ __forceinline__ void warp_transpose_sum(int (&v)[kPairs], int lane) {
 
 // grid = (cluster, prefix tiles, item tiles), clusters of (cluster, 1, 1):
 // block `rank` of a cluster sweeps words [rank * chunk, (rank + 1) * chunk)
-// of its tile.  kVec: every row starts on a 16-byte boundary and chunk is a
-// multiple of 4, so a thread reads 4 words of each row with one 128-bit load.
-template <int kT, bool kVec>
+// of its tile.
+template <int kT>
 __global__ void __launch_bounds__(kT, kWide / kT)
 multi_support_kernel(const uint32_t* __restrict__ items,
                      const uint32_t* __restrict__ tids,
@@ -102,32 +103,15 @@ multi_support_kernel(const uint32_t* __restrict__ items,
 #pragma unroll
   for (int p = 0; p < kPairs; ++p) acc[p] = 0;
 
-  if constexpr (kVec) {
-    for (int w = w_begin + 4 * threadIdx.x; w < w_end; w += 4 * kT) {
-      uint4 a[kItemTile];
+  for (int w = w_begin + threadIdx.x; w < w_end; w += kT) {
+    uint32_t a[kItemTile];
 #pragma unroll
-      for (int ii = 0; ii < kItemTile; ++ii)
-        a[ii] = __ldg(reinterpret_cast<const uint4*>(item_row[ii] + w));
+    for (int ii = 0; ii < kItemTile; ++ii) a[ii] = __ldg(item_row[ii] + w);
 #pragma unroll
-      for (int kk = 0; kk < kPrefixTile; ++kk) {
-        const uint4 t = __ldg(reinterpret_cast<const uint4*>(tid_row[kk] + w));
+    for (int kk = 0; kk < kPrefixTile; ++kk) {
+      const uint32_t t = __ldg(tid_row[kk] + w);
 #pragma unroll
-        for (int ii = 0; ii < kItemTile; ++ii)
-          acc[kk * kItemTile + ii] += __popc(a[ii].x & t.x) + __popc(a[ii].y & t.y) +
-                                      __popc(a[ii].z & t.z) + __popc(a[ii].w & t.w);
-      }
-    }
-  } else {
-    for (int w = w_begin + threadIdx.x; w < w_end; w += kT) {
-      uint32_t a[kItemTile];
-#pragma unroll
-      for (int ii = 0; ii < kItemTile; ++ii) a[ii] = __ldg(item_row[ii] + w);
-#pragma unroll
-      for (int kk = 0; kk < kPrefixTile; ++kk) {
-        const uint32_t t = __ldg(tid_row[kk] + w);
-#pragma unroll
-        for (int ii = 0; ii < kItemTile; ++ii) acc[kk * kItemTile + ii] += __popc(a[ii] & t);
-      }
+      for (int ii = 0; ii < kItemTile; ++ii) acc[kk * kItemTile + ii] += __popc(a[ii] & t);
     }
   }
 
@@ -189,20 +173,14 @@ single_support_kernel(const uint32_t* __restrict__ items,
   }
 }
 
-long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
-
 // How B1 is launched for one call.
 struct MultiPlan {
   int threads, k_tiles, i_tiles, cluster, chunk;
-  bool vec;
 };
 
-const void* multi_kernel(int threads, bool vec) {
-  if (threads == kWide)
-    return vec ? reinterpret_cast<const void*>(multi_support_kernel<kWide, true>)
-               : reinterpret_cast<const void*>(multi_support_kernel<kWide, false>);
-  return vec ? reinterpret_cast<const void*>(multi_support_kernel<kNarrow, true>)
-             : reinterpret_cast<const void*>(multi_support_kernel<kNarrow, false>);
+const void* multi_kernel(int threads) {
+  return threads == kWide ? reinterpret_cast<const void*>(multi_support_kernel<kWide>)
+                          : reinterpret_cast<const void*>(multi_support_kernel<kNarrow>);
 }
 
 cudaLaunchConfig_t multi_config(const MultiPlan& p, cudaStream_t s, cudaLaunchAttribute* attr) {
@@ -220,27 +198,6 @@ cudaLaunchConfig_t multi_config(const MultiPlan& p, cudaStream_t s, cudaLaunchAt
   return cfg;
 }
 
-// Clusters of `cluster` blocks of the plan's kernel that fit on the current
-// device at once, queried once per device, kernel and cluster size.
-int active_clusters(const MultiPlan& p, int cluster, cudaError_t* err) {
-  constexpr int kDevices = 64;
-  static int known[2][2][kDevices][kMaxCluster + 1];
-  int dev = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err != cudaSuccess) return 0;
-  int* slot = dev < kDevices ? &known[p.threads == kWide][p.vec][dev][cluster] : nullptr;
-  if (slot && *slot > 0) return *slot;
-  MultiPlan probe = p;
-  probe.cluster = cluster;
-  probe.k_tiles = probe.i_tiles = 1;
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = multi_config(probe, nullptr, &attr);
-  int n = 0;
-  *err = cudaOccupancyMaxActiveClusters(&n, multi_kernel(p.threads, p.vec), &cfg);
-  if (*err == cudaSuccess && slot) *slot = n;
-  return n;
-}
-
 // Wide blocks where W gives each thread 4 words, else narrow ones.  One
 // cluster per output tile, sized so
 // that every cluster is resident at once (one wave): the kernel lasts as
@@ -248,33 +205,30 @@ int active_clusters(const MultiPlan& p, int cluster, cudaError_t* err) {
 // tile's work each, so among the cluster sizes C that fit in one wave take
 // the one that makes this least, the smaller on a tie (a smaller
 // reduction); where not even single blocks fit in one wave, C = 1.
-cudaError_t plan_multi(const void* items, const void* tids, int K, int I, int W, int sms,
-                       MultiPlan* p) {
+cudaError_t plan_multi(int K, int I, int W, int sms, MultiPlan* p) {
   p->k_tiles = static_cast<int>(ceil_div(K, kPrefixTile));
   p->i_tiles = static_cast<int>(ceil_div(I, kItemTile));
-  p->vec = W % 4 == 0 &&
-           (reinterpret_cast<uintptr_t>(items) | reinterpret_cast<uintptr_t>(tids)) % 16 == 0;
   const long long tiles = static_cast<long long>(p->k_tiles) * p->i_tiles;
   const long long n_sm = sms > 0 ? sms : 1;
   p->threads = W >= 4 * kWide ? kWide : kNarrow;
   const int most = max(1, min(kMaxCluster, W / (4 * p->threads)));
   int best = 1;
-  cudaError_t err = cudaSuccess;
   for (int c = 2; c <= most; ++c) {
-    const int fit = active_clusters(*p, c, &err);
+    int fit = 0;
+    const cudaError_t err = resident(multi_kernel(p->threads), p->threads, 0, c, &fit);
     if (err != cudaSuccess) return err;
     if (tiles > fit) break;
     if (ceil_div(tiles * c, n_sm) * best < ceil_div(tiles * best, n_sm) * c) best = c;
   }
   p->cluster = best;
-  p->chunk = static_cast<int>(ceil_div(ceil_div(W, best), 4) * 4);
+  p->chunk = static_cast<int>(ceil_div(W, best));
   return cudaSuccess;
 }
 
-template <int kT, bool kVec>
+template <int kT>
 cudaError_t launch_multi(const cudaLaunchConfig_t& cfg, const void* items, const void* tids,
                          void* out, int K, int I, int W, int chunk) {
-  return cudaLaunchKernelEx(&cfg, multi_support_kernel<kT, kVec>,
+  return cudaLaunchKernelEx(&cfg, multi_support_kernel<kT>,
                             static_cast<const uint32_t*>(items),
                             static_cast<const uint32_t*>(tids), static_cast<int32_t*>(out), K,
                             I, W, chunk);
@@ -290,43 +244,37 @@ int multi_extension_supports(const void* items, const void* tids, void* out,
                              int K, int I, int W, int sms, void* stream) {
   if (K <= 0 || I <= 0) return static_cast<int>(cudaSuccess);
   MultiPlan p;
-  cudaError_t err = plan_multi(items, tids, K, I, W, sms, &p);
+  cudaError_t err = plan_multi(K, I, W, sms, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = multi_config(p, static_cast<cudaStream_t>(stream), &attr);
-  if (p.threads == kWide)
-    err = p.vec ? launch_multi<kWide, true>(cfg, items, tids, out, K, I, W, p.chunk)
-                : launch_multi<kWide, false>(cfg, items, tids, out, K, I, W, p.chunk);
-  else
-    err = p.vec ? launch_multi<kNarrow, true>(cfg, items, tids, out, K, I, W, p.chunk)
-                : launch_multi<kNarrow, false>(cfg, items, tids, out, K, I, W, p.chunk);
+  err = p.threads == kWide ? launch_multi<kWide>(cfg, items, tids, out, K, I, W, p.chunk)
+                           : launch_multi<kNarrow>(cfg, items, tids, out, K, I, W, p.chunk);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// What multi_extension_supports launches for these operands, into facts[12]:
-// grid x, y, z, threads a block, cluster size, chunk words, 128-bit loads (0
-// or 1), resident blocks an SM, clusters resident at once, waves, registers a
-// thread, local (spilled) bytes a thread.
-int multi_extension_supports_facts(const void* items, const void* tids, int K, int I, int W,
-                                   int sms, int* facts) {
+// What multi_extension_supports launches for these shapes, into facts[11]:
+// grid x, y, z, threads a block, cluster size, chunk words, resident blocks
+// an SM, clusters resident at once, waves, registers a thread, local
+// (spilled) bytes a thread.
+int multi_extension_supports_facts(int K, int I, int W, int sms, int* facts) {
   MultiPlan p;
-  cudaError_t err = plan_multi(items, tids, K, I, W, sms, &p);
+  cudaError_t err = plan_multi(K, I, W, sms, &p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const void* kernel = multi_kernel(p.threads, p.vec);
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, 0);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int fit = active_clusters(p, p.cluster, &err);
+  const void* kernel = multi_kernel(p.threads);
+  int per_sm = 0, fit = 0;
+  err = resident(kernel, p.threads, 0, 0, &per_sm);
+  if (err == cudaSuccess) err = resident(kernel, p.threads, 0, p.cluster, &fit);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaFuncAttributes fa;
   err = cudaFuncGetAttributes(&fa, kernel);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = static_cast<long long>(p.k_tiles) * p.i_tiles;
-  const int values[12] = {p.cluster, p.k_tiles, p.i_tiles, p.threads, p.cluster, p.chunk,
-                          p.vec, per_sm, fit, static_cast<int>(ceil_div(tiles, max(fit, 1))),
+  const int values[11] = {p.cluster, p.k_tiles, p.i_tiles, p.threads, p.cluster, p.chunk,
+                          per_sm, fit, static_cast<int>(ceil_div(tiles, max(fit, 1))),
                           fa.numRegs, static_cast<int>(fa.localSizeBytes)};
-  for (int j = 0; j < 12; ++j) facts[j] = values[j];
+  for (int j = 0; j < 11; ++j) facts[j] = values[j];
   return static_cast<int>(cudaSuccess);
 }
 

@@ -17,7 +17,7 @@ population count: f ⊆ t iff the OR over the words of ``f & ~t`` is zero, one
 LOP3 a word on the 32-bit integer pipe.  The design
 (``csrc/delta_support.cu``) spends the instruction slots on those LOP3s: the word
 count is a template parameter (at most 4 words, the thesis database's 100
-items among them, or 8, in straight-line code; wider masks in a loop); a
+items among them, in straight-line code; wider masks in a loop); a
 thread keeps 32 itemset words in registers (8 itemsets of 4 words); a block
 stages tiles of rows in two shared buffers with ``cp.async``, so the next
 tile lands while the current one is compared, and every thread reads the

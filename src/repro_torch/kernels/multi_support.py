@@ -19,9 +19,8 @@ TB/s); the 6 MB item slab also stays in the 50 MB L2 from one trip to the
 next.  At that size the fixed costs of a launch weigh as much as the
 counting, so the design (``csrc/support.cu``, ``multi_support_kernel``)
 cuts them: a block owns a tile of 4 items × 8 prefixes and a chunk of W;
-each thread strides the chunk (with 128-bit loads where every row starts on
-a 16-byte boundary, W a multiple of 4) and keeps the 32 counts in
-registers, so one loaded word serves 8 (item) or 4 (prefix) popcounts.  The
+each thread strides the chunk with coalesced 32-bit loads and keeps the
+32 counts in registers, so one loaded word serves 8 (item) or 4 (prefix) popcounts.  The
 chunks of one tile are the blocks of one thread-block cluster (at most 8):
 a warp reduces its 32 counts in 31 shuffles, the block in shared memory,
 and the cluster's first block adds the blocks' counts through distributed
@@ -171,15 +170,14 @@ def launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
     facts = (ctypes.c_int * len(_FACTS))()
     with torch.cuda.device(item_bits.device):
         status = build.library().multi_extension_supports_facts(
-            item_bits.data_ptr(), prefix_tids.data_ptr(), K, I, W,
-            _sm_count(item_bits.device.index), ctypes.addressof(facts),
+            K, I, W, _sm_count(item_bits.device.index), ctypes.addressof(facts),
         )
     build.check(status, "multi_extension_supports_facts")
     return dict(zip(_FACTS, facts))
 
 
-_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words", "vec128",
-          "blocks_per_sm", "clusters_resident", "waves", "registers", "local_bytes")
+_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words", "blocks_per_sm",
+          "clusters_resident", "waves", "registers", "local_bytes")
 
 multi_extension_supports_cuda.launches = 0
 multi_extension_supports_mxu_cuda.launches = 0
