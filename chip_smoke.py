@@ -8,16 +8,22 @@ prints one JSON object on a line of its own:
 
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
   build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``,
-           and the tensor-core MMA instructions in B2's SASS;
+           the tensor-core MMA instructions in B2's and B7's SASS, and the
+           1-bit MMA's issue rate (a register-only loop of ``mma_b1`` on one
+           SM and on all of them, in MMAs an SM a clock);
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
            and the main path's shapes (B1 also for K in {1, 7, 16, 17, 64}, I
            in {1, 100, 129} and W around its chunks and block sizes;
            B2 to B1's kernel too; B4 and B5 for Q, F, T in {1, 7, 129, 1000}
            and 1, 4, 9 and 40 item words, B5 also for both word forms, S in
-           {1, 2, 3} and T, F off its tiles; B6 and B7,
-           and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W in {1, 2,
-           33, 1025, 15625} under a valid mask with zero words and a ragged
-           last word), with its device time, the plain version's, and the
+           {1, 2, 3} and T, F off its tiles; B2 to its plain version and B1
+           for K in {1, 15, 16, 17, 63, 64, 65, 129}, I in {1, 7, 8, 9, 100,
+           127, 128, 129, 131} and W in {1, 7, 8, 9, 118, 119, 15625, 16384};
+           B6 and B7, and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W
+           in {1, 2, 33, 1025, 15625}, and for I in {1, 7, 8, 9, 100, 127,
+           128, 129, 131, 300} and the W above, under a valid mask with zero
+           words and a ragged last word), with its device time, the plain
+           version's, and the
            least time the card could take (``bound_ms``); for B1, B2, B3, B6
            and B7 also one PyTorch call that computes the same product
            (``library_ms``);
@@ -31,7 +37,9 @@ prints one JSON object on a line of its own:
   cluster  the cluster launcher's path (planner, rounds, rebalancing) on the
            thesis database at P=4, K=16: the same FITable as ``main``;
   cluster_mxu  the same with ``ClusterParams(use_mxu=True)`` at K=64: Phase 4
-           on B2, one launch per DFS trip, B1 only in the planner;
+           on B2, one launch per DFS trip, B1 only in the planner; how many
+           of B2's launches took each K and W (and B2 timed at the K most
+           of them take, if that is neither 16 nor 64);
   resume   on T20I0.1P50PL10TL40, a run killed after round 0 and resumed
            from its checkpoint gives the unbroken run's FITable, row for row,
            with B1 and with B2;
@@ -55,9 +63,10 @@ prints one JSON object on a line of its own:
   profile  the main path, both cluster paths and the serve replay once more
            under ``torch.profiler``: the card's busy time and share of the
            wall, and the kernels' share of that.
-  launch_facts  how B1 and B5 were launched at each shape they were timed
-           at: grid, threads and cluster size, resident blocks an SM, waves,
-           registers and spilled bytes a thread.
+  launch_facts  how B1, B2, B5 and B7 were launched at each shape they were
+           timed at: grid, threads, cluster size (B1), chunk, shared bytes,
+           resident blocks an SM, waves, registers and spilled bytes a
+           thread.
 
 Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -66,6 +75,8 @@ The script imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import json
 import shutil
 import statistics
@@ -272,8 +283,49 @@ def sass_of(lib_path: Path, symbol: str) -> str:
     return found[0]
 
 
-def phase_kernels(torch, dev):
-    """Each kernel against its plain version on ragged shapes, then timed."""
+def mma_rate(torch, build, sms):
+    """The issue rate of the 1-bit MMA ``mma_b1`` alone: ``bmma_issue_rate``
+    runs 16 warps a block, each 4096 rounds of 8 independent MMAs on
+    registers, on one block (one SM) and on one block an SM; each block
+    reads its SM clocks, and CUDA events time the whole launch.  An MMA is
+    m16n8k256: 16·8·256 products of bits, 65,536 operations as
+    ``mxu_bound`` counts them."""
+    from repro_torch.obs import machine as hw
+
+    threads, iters = 512, 4096
+    mmas = threads // 32 * iters * 8
+    out = {}
+    for label, blocks in (("one_sm", 1), ("all_sms", sms)):
+        cycles = torch.zeros(blocks, dtype=torch.int64, device="cuda")
+        sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+        def launch():
+            build.check(build.library().bmma_issue_rate(
+                blocks, threads, iters, cycles.data_ptr(), sink.data_ptr(),
+                torch.cuda.current_stream().cuda_stream), "bmma_issue_rate")
+
+        launch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        stop.record()
+        stop.synchronize()
+        ms_ = start.elapsed_time(stop)
+        per_clock = mmas / cycles.double()
+        out[label] = {"blocks": blocks, "threads": threads, "mmas_a_block": mmas,
+                      "mma_per_sm_clock": float(per_clock.mean()),
+                      "mma_per_sm_clock_min": float(per_clock.min()), "ms": ms_,
+                      "mma_per_s": blocks * mmas / (ms_ * 1e-3),
+                      "ops_per_s": blocks * mmas * 65536 / (ms_ * 1e-3)}
+    out["int8_ops_per_s"] = hw.INT8_TENSOR_OPS_PER_S
+    return out
+
+
+def phase_kernels(torch, dev, mma_per_s):
+    """Each kernel against its plain version on ragged shapes, then timed;
+    ``mma_per_s`` is the measured rate of the 1-bit MMA on the whole card."""
     from repro_torch.kernels import bitmap_support as bs
     from repro_torch.kernels import multi_support as ms
 
@@ -305,6 +357,11 @@ def phase_kernels(torch, dev):
             fail(f"extension_supports differs from its plain version at I={I} W={W}")
     mxu_shapes = [(K, I, W) for K in (1, 13, 16, 17, 64) for I in (1, 7, 8, 33, 100, 131)
                   for W in (1, 2, 33, 1025)] + [(0, 10, 8), (4, 0, 8), (4, 10, 0)]
+    # B2's edges: K around its m-tiles of 16 and tiles of 64, I around its
+    # n-tiles of 8 and tiles, W around its slots and chunks, odd and 1 mod 4
+    mxu_shapes += [(K, I, W) for K in (1, 15, 16, 17, 63, 64, 65, 129)
+                   for I in (1, 7, 8, 9, 100, 127, 128, 129, 131)
+                   for W in (1, 7, 8, 9, 118, 119, 15625, 16384)]
     for K, I, W in mxu_shapes:
         items, tids = words(I, W), words(K, W)
         got = ms.multi_extension_supports_mxu_cuda(items, tids)
@@ -315,9 +372,8 @@ def phase_kernels(torch, dev):
             fail(f"multi_extension_supports_mxu differs from B1's kernel at K={K} I={I} W={W}")
     n_sweep = check_sweeps(torch, words, dev, gen)
     n_pair = check_pairs(torch, words)
-    torch.cuda.synchronize()
-
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    torch.cuda.synchronize()
 
     def timed(name, kernel, plain, K, I, W, args):
         out = kernel(*args)
@@ -335,24 +391,6 @@ def phase_kernels(torch, dev):
                 "library_ms": lib["ms"], "library": lib,
                 "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "popc": n_popc}
 
-    def timed_mxu(K, I, W):
-        items, tids = words(I, W), words(K, W)
-        out = ms.multi_extension_supports_mxu_cuda(items, tids)
-        err = int((out.long() - ms.multi_extension_supports_mxu_plain(items, tids).long())
-                  .abs().max())
-        b_ms, b_by, n_bytes, n_ops = mxu_bound(K, I, W)
-        lib = library_call(torch, items, tids, out)
-        return {"name": "multi_extension_supports_mxu", "shape": {"K": K, "I": I, "W": W},
-                "max_abs_err": err,
-                "ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_cuda(items, tids),
-                                launches=100),
-                "plain_ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_plain(
-                    items, tids), launches=3, reps=3),
-                "b1_ms": device_ms(torch, lambda: ms.multi_extension_supports_cuda(items, tids),
-                                   launches=100),
-                "library_ms": lib["ms"], "library": lib,
-                "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "int8_ops": n_ops}
-
     timings = []
     for K, W in ((16, 15625), (16, 64), (16, 16384), (1, 15625), (64, 15625)):
         timings.append(timed("multi_extension_supports", ms.multi_extension_supports_cuda,
@@ -363,19 +401,44 @@ def phase_kernels(torch, dev):
                              bs.extension_supports_plain, 1, 100, W,
                              (words(100, W), words(W))))
     for K in (16, 64):
-        timings.append(timed_mxu(K, 100, 15625))
+        timings.append(time_mxu(torch, words(100, 15625), words(K, 15625), mma_per_s))
     # both at the demo's shape, every transaction valid as in the demo's
     # whole database (B6's own path, repl_min, is timed in ``phase_exact``)
     for mxu in (False, True):
         timings.append(time_pair(torch, words(100, 15625),
                                  torch.full((15625,), -1, dtype=torch.int32, device=dev),
-                                 sms, mxu))
+                                 sms, mxu, mma_per_s))
     if any(t["max_abs_err"] or t.get("library", {}).get("max_abs_err") for t in timings):
         fail(f"a timed kernel or its library call disagrees with its plain version: {timings}")
     emit({"phase": "kernels",
           "checked_shapes": len(multi_shapes) + len(single_shapes) + len(mxu_shapes) + n_sweep
           + n_pair, "bit_equal": True, "timed": timings})
     return timings
+
+
+def time_mxu(torch, items, tids, mma_per_s):
+    """B2 on these operands: device time, the plain version's and B1's, the
+    bound, its launch facts, the floor the measured 1-bit MMA rate sets
+    (K·I·W/1024 MMAs of m16n8k256 at ``mma_per_s``), and ``torch._int_mm``
+    as the yardstick."""
+    from repro_torch.kernels import multi_support as ms
+
+    (I, W), K = items.shape, tids.shape[0]
+    out = ms.multi_extension_supports_mxu_cuda(items, tids)
+    err = int((out.long() - ms.multi_extension_supports_mxu_plain(items, tids).long()).abs().max())
+    b_ms, b_by, n_bytes, n_ops = mxu_bound(K, I, W)
+    lib = library_call(torch, items, tids, out)
+    return {"name": "multi_extension_supports_mxu", "shape": {"K": K, "I": I, "W": W},
+            "max_abs_err": err, "launch": ms.mxu_launch_facts(items, tids),
+            "ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_cuda(items, tids),
+                            launches=100),
+            "plain_ms": device_ms(torch, lambda: ms.multi_extension_supports_mxu_plain(
+                items, tids), launches=3, reps=3),
+            "b1_ms": device_ms(torch, lambda: ms.multi_extension_supports_cuda(items, tids),
+                               launches=100),
+            "library_ms": lib["ms"], "library": lib,
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "int8_ops": n_ops,
+            "mma_floor_ms": K * I * W / 1024 / mma_per_s * 1e3}
 
 
 def check_sweeps(torch, words, dev, gen) -> int:
@@ -432,12 +495,15 @@ def check_sweeps(torch, words, dev, gen) -> int:
 
 def check_pairs(torch, words) -> int:
     """B6 and B7 bit-equal to their plain versions, and B7 to B6, for I in
-    {1, 7, 8, 17, 33, 100, 131} and W in {1, 2, 33, 1025, 15625}, plus empty I
-    and W, under a valid mask with whole words, zero words and a ragged last
-    word; returns the count."""
+    {1, 7, 8, 17, 33, 100, 131} and W in {1, 2, 33, 1025, 15625}, for B7's
+    edges (I in {1, 7, 8, 9, 100, 127, 128, 129, 131, 300}, W in {1, 7, 8, 9,
+    118, 119, 15625, 16384}), plus empty I and W, under a valid mask with
+    whole words, zero words and a ragged last word; returns the count."""
     from repro_torch.kernels import pair_support as ps
 
     shapes = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1025, 15625)]
+    shapes += [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
+               for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
     shapes += [(0, 8), (9, 0)]
     for I, W in shapes:
         items, valid = words(I, W), words(W)
@@ -456,9 +522,11 @@ def check_pairs(torch, words) -> int:
     return len(shapes)
 
 
-def time_pair(torch, items, valid, sms, mxu):
+def time_pair(torch, items, valid, sms, mxu, mma_per_s=None):
     """B6 or B7 on ``items`` under ``valid``, with ``torch._int_mm`` of the
-    masked bits with themselves as the yardstick."""
+    masked bits with themselves as the yardstick; for B7 also its launch
+    facts and the floor the measured 1-bit MMA rate sets (I(I+1)/2·W/1024
+    MMAs of m16n8k256 at ``mma_per_s``)."""
     from repro_torch.kernels import pair_support as ps
 
     kernel = ps.pair_supports_mxu_cuda if mxu else ps.pair_supports_cuda
@@ -469,8 +537,10 @@ def time_pair(torch, items, valid, sms, mxu):
     b_ms, b_by, n_bytes, n_ops = pair_bound(I, W, sms, mxu)
     masked = items & valid
     lib = library_call(torch, masked, masked, out)
+    extra = {"launch": ps.mxu_launch_facts(items, valid),
+             "mma_floor_ms": I * (I + 1) // 2 * W / 1024 / mma_per_s * 1e3} if mxu else {}
     return {"name": "pair_supports_mxu" if mxu else "pair_supports",
-            "shape": {"I": I, "W": W}, "max_abs_err": err,
+            "shape": {"I": I, "W": W}, "max_abs_err": err, **extra,
             "ms": device_ms(torch, lambda: kernel(items, valid), launches=100),
             "plain_ms": device_ms(torch, lambda: plain(items, valid), launches=3, reps=3),
             "library_ms": lib["ms"], "library": lib,
@@ -965,6 +1035,28 @@ def phase_profile_demo(torch, dev, dense, n_fis):
     return launches
 
 
+@contextlib.contextmanager
+def recorded_mxu_shapes():
+    """The (K, I, W) of every launch of B2 inside the block, read where its
+    wrapper launches (``multi_support._launch``) and recorded for this
+    script only; the wrapper's launch count is untouched."""
+    from repro_torch.kernels import multi_support as ms
+
+    shapes, inner = [], ms._launch
+
+    def recording(name, item_bits, prefix_tids):
+        out, launched = inner(name, item_bits, prefix_tids)
+        if launched and name == "multi_extension_supports_mxu":
+            shapes.append((int(prefix_tids.shape[0]), *map(int, item_bits.shape)))
+        return out, launched
+
+    ms._launch = recording
+    try:
+        yield shapes
+    finally:
+        ms._launch = inner
+
+
 def cluster_args(db_name, *extra):
     from repro_torch.launch import cluster_mine
 
@@ -972,11 +1064,12 @@ def cluster_args(db_name, *extra):
         ["--db", db_name, "--support", str(SUPPORT), "-P", "4", *extra])
 
 
-def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
+def phase_cluster(torch, dev, dense, db_name, want, use_mxu, mma_per_s=None):
     """The cluster launcher's path once (planner, rounds, rebalancing), with
     the launch counts of exactly that run; with ``use_mxu`` Phase 4 runs on
     B2 at K=64, and B1 only in the planner, whose launches a second planner
-    run with the same seed counts."""
+    run with the same seed counts, and the run records how many of B2's
+    launches took each K, I and W."""
     from repro_torch import cluster
     from repro_torch.core import fimi
     from repro_torch.launch import cluster_mine
@@ -988,7 +1081,8 @@ def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
           f"scheduler={args.scheduler} use_mxu={use_mxu}", flush=True)
     torch.cuda.synchronize()
     reset_launch_counts()
-    res, wall_s = cluster_mine.run_once(dense, 4, args, dev, use_mxu=use_mxu)
+    with recorded_mxu_shapes() as shapes:
+        res, wall_s = cluster_mine.run_once(dense, 4, args, dev, use_mxu=use_mxu)
     launches = launch_counts()
     cluster_mine.report(res, wall_s)
     rep = res.report
@@ -1017,6 +1111,21 @@ def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
         fail(f"{name}: B1 must carry the sweeps, not B2: {launches}")
     if launches["extension_supports"] <= 0:
         fail(f"{name}: the planner did not launch B3: {launches}")
+    b2_shapes, b2_modal = None, None
+    if use_mxu:
+        if len(shapes) != launches["multi_extension_supports_mxu"]:
+            fail(f"{name}: {len(shapes)} B2 shapes recorded for "
+                 f"{launches['multi_extension_supports_mxu']} launches")
+        b2_shapes = {axis: {str(v): n for v, n in sorted(collections.Counter(
+            shape[j] for shape in shapes).items())} for j, axis in enumerate(("K", "I", "W"))}
+        mk, mi, mw = collections.Counter(shapes).most_common(1)[0][0]
+        if mk not in (16, 64):  # B2 at the shape most launches take
+            gen = torch.Generator(device=dev).manual_seed(1)
+            items, tids = (torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev,
+                                         generator=gen) for shape in ((mi, mw), (mk, mw)))
+            b2_modal = time_mxu(torch, items, tids, mma_per_s)
+            if b2_modal["max_abs_err"]:
+                fail(f"{name}: B2 disagrees with its plain version at K={mk} I={mi} W={mw}")
     emit({"phase": name, "db": db_name, "support": SUPPORT, "P": 4, "K": K,
           "use_mxu": use_mxu, "n_fis": res.table.n_fis, "equals_main": True,
           "wall_s": wall_s, "phase_ms": rep.phase_ms, "rounds": rep.n_rounds,
@@ -1026,7 +1135,8 @@ def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
           "makespan_trips": rep.makespan_trips,
           "estimation_error": rep.estimation_error(),
           "scheduler": res.plan.scheduler_used, "classes": len(res.plan.classes),
-          "phase4_trips": trips, "planner_b1_launches": planner_b1, "launches": launches})
+          "phase4_trips": trips, "planner_b1_launches": planner_b1, "launches": launches,
+          "b2_launch_shapes": b2_shapes, "b2_at_modal_shape": b2_modal})
     return launches
 
 
@@ -1096,27 +1206,31 @@ def main() -> None:
     lib_path = build.build()
     build.library()
     build_s = time.perf_counter() - t0
-    sass = sass_of(lib_path, "mxu_support_kernel")
-    mma = {op: sass.count(op) for op in ("IMMA", "BMMA")}
-    if not sum(mma.values()):
-        fail("B2's SASS holds no tensor-core MMA instruction")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    mma = {}
+    for kernel, symbol in (("b2", "mxu_support_kernel"), ("b7", "pair_support_mxu_kernel")):
+        sass = sass_of(lib_path, symbol)
+        mma[kernel] = {op: sass.count(op) for op in ("IMMA", "BMMA")}
+        if not sum(mma[kernel].values()):
+            fail(f"{symbol}'s SASS holds no tensor-core MMA instruction")
+    rate = mma_rate(torch, build, sms)
     emit({"phase": "build", "seconds": build_s, "sources": [s.name for s in build.SOURCES],
           "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS),
-          "b2_sass_mma": mma})
+          "sass_mma": mma, "mma_b1_rate": rate, "nvidia_smi": smi})
 
-    timings = phase_kernels(torch, dev)
+    timings = phase_kernels(torch, dev, rate["all_sms"]["mma_per_s"])
 
     t0 = time.perf_counter()
     dense = ibm_gen.generate_dense(ibm_gen.params_from_name(THESIS_DB, seed=0))
     res, launches = phase_main(torch, dev, dense, THESIS_DB, time.perf_counter() - t0)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     want, mid, repl_launches, repl_timing = phase_exact(torch, dev, sms, dense, res.n_fis,
                                                         MID_DB, SMALL_DB)
     launches["pair_supports"] = repl_launches["pair_supports"]
     demo_launches = phase_profile_demo(torch, dev, dense, res.n_fis)
     launches["pair_supports_mxu"] = demo_launches["pair_supports_mxu"]
     phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=False)
-    launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
+    launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True,
+                                 mma_per_s=rate["all_sms"]["mma_per_s"])
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)

@@ -41,6 +41,7 @@
 #include <cuda_runtime.h>
 
 #include "bmma.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -143,6 +144,48 @@ mxu_support_kernel(const uint32_t* __restrict__ items,
   }
 }
 
+// How B2 is launched for these shapes (K, I and W positive): grid (W chunks
+// of whole stages, prefix tiles of 16, item tiles of 32) and the chunk's
+// words.  W is split into about kBlocksPerSm blocks an SM over the tiles.
+struct MxuGrid {
+  dim3 grid;
+  int chunk;
+};
+
+MxuGrid mxu_grid(int K, int I, int W, int sms) {
+  const int k_tiles = (K + kTileK - 1) / kTileK;
+  const int i_tiles = (I + kTileI - 1) / kTileI;
+  const int tiles = k_tiles * i_tiles;
+  const int want = (kBlocksPerSm * max(sms, 1) + tiles - 1) / tiles;
+  const int most = (W + kMinChunk - 1) / kMinChunk;
+  const int splits = max(1, min(want, most));
+  // whole stages per chunk; every chunk then holds at least one word
+  const int stages = ((W + splits - 1) / splits + kStageWords - 1) / kStageWords;
+  const int chunk = stages * kStageWords;
+  return {dim3((W + chunk - 1) / chunk, k_tiles, i_tiles), chunk};
+}
+
+// The issue rate of the 1-bit MMA alone: each warp runs `iters` rounds of 8
+// independent MMAs on registers, and each block reports the SM clocks it
+// took.  The sink keeps the MMAs from being dropped.
+__global__ void bmma_rate_kernel(int iters, long long* cycles, int* sink) {
+  int acc[8][4] = {};
+  const uint32_t a = threadIdx.x * 2654435761u, b = a ^ 0x9e3779b9u;
+  __syncthreads();
+  const long long t0 = clock64();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mma_b1(acc[j], a, a + j, a ^ j, ~a, b, b + j);
+  }
+  __syncthreads();
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
+  int s = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
+  if (s == 0x7fffffff) *sink = s;
+}
+
 }  // namespace
 
 extern "C" {
@@ -157,20 +200,29 @@ int multi_extension_supports_mxu(const void* items, const void* tids, void* out,
       cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(K) * I, s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   if (K > 0 && I > 0 && W > 0) {
-    const int k_tiles = (K + kTileK - 1) / kTileK;
-    const int i_tiles = (I + kTileI - 1) / kTileI;
-    const int tiles = k_tiles * i_tiles;
-    const int want = (kBlocksPerSm * max(sms, 1) + tiles - 1) / tiles;
-    const int most = (W + kMinChunk - 1) / kMinChunk;
-    const int splits = max(1, min(want, most));
-    // whole stages per chunk; every chunk then holds at least one word
-    const int stages = ((W + splits - 1) / splits + kStageWords - 1) / kStageWords;
-    const int chunk = stages * kStageWords;
-    const dim3 grid((W + chunk - 1) / chunk, k_tiles, i_tiles);
-    mxu_support_kernel<<<grid, kThreads, 0, s>>>(
+    const MxuGrid g = mxu_grid(K, I, W, sms);
+    mxu_support_kernel<<<g.grid, kThreads, 0, s>>>(
         static_cast<const uint32_t*>(items), static_cast<const uint32_t*>(tids),
-        static_cast<int32_t*>(out), K, I, W, chunk);
+        static_cast<int32_t*>(out), K, I, W, g.chunk);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// What multi_extension_supports_mxu launches for these shapes (K, I and W
+// positive), into facts[10] (grid_facts in occupancy.cuh), without launching.
+int multi_extension_supports_mxu_facts(int K, int I, int W, int sms, int* facts) {
+  if (K <= 0 || I <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const MxuGrid g = mxu_grid(K, I, W, sms);
+  return static_cast<int>(grid_facts(reinterpret_cast<const void*>(mxu_support_kernel), g.grid,
+                                     kThreads, g.chunk, 0, sms, facts));
+}
+
+// Times the 1-bit MMA's issue: `blocks` blocks of `threads` threads, `iters`
+// rounds of 8 MMAs a warp; cycles[b] gets block b's SM clocks.
+int bmma_issue_rate(int blocks, int threads, int iters, void* cycles, void* sink,
+                    void* stream) {
+  bmma_rate_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, static_cast<long long*>(cycles), static_cast<int*>(sink));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -33,6 +33,7 @@
 #include <cuda_runtime.h>
 
 #include "bmma.cuh"
+#include "occupancy.cuh"
 
 namespace {
 
@@ -251,6 +252,26 @@ pair_support_mxu_kernel(const uint32_t* __restrict__ items,
   }
 }
 
+// How B7 is launched for these shapes (I and W positive): grid (tile pairs,
+// W chunks of whole stages) and the chunk's words.  W is split into about
+// kMxuBlocksPerSm blocks an SM over the tile pairs.
+struct MxuGrid {
+  dim3 grid;
+  int chunk;
+};
+
+MxuGrid mxu_grid(int I, int W, int sms) {
+  const long long tiles = (I + kSide - 1) / kSide;
+  const long long pairs = tiles * (tiles + 1) / 2;
+  const int want = static_cast<int>((kMxuBlocksPerSm * max(sms, 1) + pairs - 1) / pairs);
+  const int most = (W + kMxuMinChunk - 1) / kMxuMinChunk;
+  const int splits = max(1, min(want, most));
+  // whole stages per chunk; every chunk then holds at least one word
+  const int stages = ((W + splits - 1) / splits + kStageWords - 1) / kStageWords;
+  const int chunk = stages * kStageWords;
+  return {dim3(static_cast<unsigned>(pairs), (W + chunk - 1) / chunk), chunk};
+}
+
 }  // namespace
 
 extern "C" {
@@ -286,20 +307,21 @@ int pair_supports_mxu(const void* items, const void* valid, void* out, int I, in
       cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(I) * I, s);
   if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
   if (I > 0 && W > 0) {
-    const long long tiles = (I + kSide - 1) / kSide;
-    const long long pairs = tiles * (tiles + 1) / 2;
-    const int want = static_cast<int>((kMxuBlocksPerSm * max(sms, 1) + pairs - 1) / pairs);
-    const int most = (W + kMxuMinChunk - 1) / kMxuMinChunk;
-    const int splits = max(1, min(want, most));
-    // whole stages per chunk; every chunk then holds at least one word
-    const int stages = ((W + splits - 1) / splits + kStageWords - 1) / kStageWords;
-    const int chunk = stages * kStageWords;
-    const dim3 grid(static_cast<unsigned>(pairs), (W + chunk - 1) / chunk);
-    pair_support_mxu_kernel<<<grid, kMxuThreads, 0, s>>>(
+    const MxuGrid g = mxu_grid(I, W, sms);
+    pair_support_mxu_kernel<<<g.grid, kMxuThreads, 0, s>>>(
         static_cast<const uint32_t*>(items), static_cast<const uint32_t*>(valid),
-        static_cast<int32_t*>(out), I, W, chunk);
+        static_cast<int32_t*>(out), I, W, g.chunk);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// What pair_supports_mxu launches for these shapes (I and W positive), into
+// facts[10] (grid_facts in occupancy.cuh), without launching.
+int pair_supports_mxu_facts(int I, int W, int sms, int* facts) {
+  if (I <= 0 || W <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const MxuGrid g = mxu_grid(I, W, sms);
+  return static_cast<int>(grid_facts(reinterpret_cast<const void*>(pair_support_mxu_kernel),
+                                     g.grid, kMxuThreads, g.chunk, 0, sms, facts));
 }
 
 }  // extern "C"

@@ -179,5 +179,30 @@ def launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
 _FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words", "blocks_per_sm",
           "clusters_resident", "waves", "registers", "local_bytes")
 
+
+def mxu_launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
+    """How B2 is launched for these operands (CUDA tensors, no launch made):
+    its grid (W chunks, prefix tiles of 16, item tiles of 32), chunk words,
+    shared bytes, resident blocks an SM, waves, and the kernel's registers
+    and spilled (local) bytes a thread.  K, I and W must be positive."""
+    _check_inputs("mxu_launch_facts", item_bits, prefix_tids, MXU_MAX_K, MXU_MAX_I)
+    K, (I, W) = prefix_tids.shape[0], item_bits.shape
+    return mxu_facts("multi_extension_supports_mxu_facts", item_bits.device, K, I, W)
+
+
+def mxu_facts(name: str, device: torch.device, *shape: int) -> dict:
+    """The launch facts that the C entry point ``name`` reports for ``shape``
+    on ``device`` (B2's and B7's share one layout, ``MXU_FACTS``)."""
+    facts = (ctypes.c_int * len(MXU_FACTS))()
+    with torch.cuda.device(device):
+        status = getattr(build.library(), name)(
+            *shape, _sm_count(device.index), ctypes.addressof(facts))
+    build.check(status, name)
+    return dict(zip(MXU_FACTS, facts))
+
+
+MXU_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "chunk_words", "smem_bytes", "blocks_per_sm",
+             "waves", "registers", "local_bytes")
+
 multi_extension_supports_cuda.launches = 0
 multi_extension_supports_mxu_cuda.launches = 0

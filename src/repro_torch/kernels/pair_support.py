@@ -30,7 +30,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bitmap_support import popcount
-from repro_torch.kernels.multi_support import MAX_W, _sm_count, unpack_bits
+from repro_torch.kernels.multi_support import MAX_W, _sm_count, mxu_facts, unpack_bits
 
 # the number of tile pairs, ⌈I/8⌉·(⌈I/8⌉+1)/2, must fit grid.x
 MAX_I = 1 << 18
@@ -116,6 +116,16 @@ def pair_supports_mxu_cuda(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> 
     out, launched = _launch("pair_supports_mxu", item_bits, valid_tid)
     pair_supports_mxu_cuda.launches += launched
     return out
+
+
+def mxu_launch_facts(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> dict:
+    """How B7 is launched for these operands (CUDA tensors, no launch made):
+    its grid (pairs of 32-row tiles, W chunks), chunk words, shared bytes,
+    resident blocks an SM, waves, and the kernel's registers and spilled
+    (local) bytes a thread.  I and W must be positive."""
+    _check_inputs("mxu_launch_facts", item_bits, valid_tid)
+    I, W = item_bits.shape
+    return mxu_facts("pair_supports_mxu_facts", item_bits.device, I, W)
 
 
 pair_supports_cuda.launches = 0

@@ -175,3 +175,30 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         bs.extension_supports_cuda(items, tids[0])
 
+
+
+def test_launch_facts_refuse_cpu_tensors():
+    """B2's and B7's launch facts describe a launch on the card: CPU tensors
+    are refused before the library is asked."""
+    from repro_torch.kernels import pair_support as ps
+
+    items, tids = bm.from_reference(_words((9, 5), 3)), bm.from_reference(_words((4, 5), 4))
+    with pytest.raises(ValueError):
+        ms.mxu_launch_facts(items, tids)
+    with pytest.raises(ValueError):
+        ps.mxu_launch_facts(items, tids[0])
+
+
+def test_every_c_entry_point_has_a_signature():
+    """``build.SIGNATURES`` names exactly the C entry points of the sources
+    (each ``int name(`` inside their ``extern "C"`` blocks), so that every
+    one gets its ctypes argument types."""
+    import re
+
+    from repro_torch.kernels import build
+
+    names = set()
+    for src in build.SOURCES:
+        text = src.read_text()
+        names |= set(re.findall(r"^int (\w+)\(", text[text.index('extern "C" {'):], re.M))
+    assert names == set(build.SIGNATURES)

@@ -140,6 +140,43 @@ def test_mxu_kernel_matches_plain_and_b1(cuda, k, i, w):
     assert torch.equal(got, ms.multi_extension_supports_cuda(items, tids))
 
 
+# B2's edges: K around its m-tiles and tiles of 16, I around its n-tiles of 8
+# and tiles of 32, W around its stages of 32 words and its chunks, odd and
+# 1 mod 4 (rows start 4 bytes apart from a 16-byte boundary)
+B2_RAGGED = [(k, i, w) for k in (1, 15, 16, 17, 63, 64, 65, 129)
+             for i in (1, 7, 8, 9, 100, 127, 128, 129, 131)
+             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
+
+
+@pytest.mark.parametrize("k,i,w", B2_RAGGED)
+def test_mxu_kernel_ragged_edges(cuda, k, i, w):
+    items = bm.from_reference(_words((i, w), seed=7 * i + w)).to(cuda)
+    tids = bm.from_reference(_words((k, w), seed=11 * k + w)).to(cuda)
+    got = ms.multi_extension_supports_mxu_cuda(items, tids)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ms.multi_extension_supports_mxu_plain(items, tids))
+    assert torch.equal(got, ms.multi_extension_supports_cuda(items, tids))
+
+
+def test_mxu_kernel_launch_facts(cuda):
+    """B2's grid covers every prefix and item tile and every word, in one
+    wave at the path's shapes, with no spilled registers."""
+    for k, i, w in [(64, 100, 15625), (16, 100, 15625), (1, 1, 1)] + B2_RAGGED[::37]:
+        facts = ms.mxu_launch_facts(torch.zeros((i, w), dtype=torch.int32, device=cuda),
+                                    torch.zeros((k, w), dtype=torch.int32, device=cuda))
+        assert facts["grid_y"] == -(-k // 16) and facts["grid_z"] == -(-i // 32)
+        assert facts["grid_x"] * facts["chunk_words"] >= w > (facts["grid_x"] - 1) * facts[
+            "chunk_words"]
+        assert facts["threads"] == 128 and facts["local_bytes"] == 0
+        assert facts["blocks_per_sm"] >= 1 and facts["registers"] > 0
+    assert ms.mxu_launch_facts(torch.zeros((100, 15625), dtype=torch.int32, device=cuda),
+                               torch.zeros((64, 15625), dtype=torch.int32, device=cuda)
+                               )["waves"] == 1
+    with pytest.raises(RuntimeError):  # no launch has an empty axis
+        ms.mxu_launch_facts(torch.zeros((4, 8), dtype=torch.int32, device=cuda),
+                            torch.zeros((0, 8), dtype=torch.int32, device=cuda))
+
+
 def test_mxu_wrapper_checks_its_inputs(cuda):
     items = torch.zeros((6, 8), dtype=torch.int32, device=cuda)
     tids = torch.zeros((3, 8), dtype=torch.int32, device=cuda)
@@ -348,6 +385,35 @@ def test_pair_kernels_match_plain(cuda, i, w):
     assert torch.equal(got, ps.pair_supports_plain(items, valid))
     assert torch.equal(got_mxu, ps.pair_supports_mxu_plain(items, valid))
     assert torch.equal(got_mxu, got)
+
+
+# B7's edges: I around its tiles of 32 and their fragments, W around its
+# stages and chunks, under a valid mask with whole, empty and ragged words
+B7_RAGGED = [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
+             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
+
+
+@pytest.mark.parametrize("i,w", B7_RAGGED)
+def test_pair_mxu_kernel_ragged_edges(cuda, i, w):
+    items = bm.from_reference(_words((i, w), seed=13 * i + w)).to(cuda)
+    valid = bm.from_reference(_valid(w, seed=w + 17)).to(cuda)
+    got = ps.pair_supports_mxu_cuda(items, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ps.pair_supports_mxu_plain(items, valid))
+    assert torch.equal(got, ps.pair_supports_cuda(items, valid))
+
+
+def test_pair_mxu_kernel_launch_facts(cuda):
+    """B7's grid covers every tile pair of the upper triangle and every word,
+    with no spilled registers."""
+    for i, w in [(100, 15625), (1, 1)] + B7_RAGGED[::7]:
+        facts = ps.mxu_launch_facts(torch.zeros((i, w), dtype=torch.int32, device=cuda),
+                                    torch.zeros((w,), dtype=torch.int32, device=cuda))
+        tiles = -(-i // 32)
+        assert facts["grid_x"] == tiles * (tiles + 1) // 2 and facts["grid_z"] == 1
+        assert facts["grid_y"] * facts["chunk_words"] >= w > (facts["grid_y"] - 1) * facts[
+            "chunk_words"]
+        assert facts["threads"] == 128 and facts["local_bytes"] == 0
 
 
 def test_pair_wrappers_check_their_inputs(cuda):
