@@ -7,10 +7,11 @@ Run from the root of a checkout, on a machine with one card.  Every phase
 prints one JSON object on a line of its own:
 
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
-  build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``,
-           the tensor-core MMA instructions in B2's and B7's SASS, and the
-           1-bit MMA's issue rate (a register-only loop of ``mma_b1`` on one
-           SM and on all of them, in MMAs an SM a clock);
+  build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``
+           (and the probe ``probes/bmma_rate.cu`` beside them), the
+           tensor-core MMA instructions in B2's and B7's SASS, and the 1-bit
+           MMA's issue rate (the probe's register-only loop of ``mma_b1`` on
+           one SM and on all of them, in MMAs an SM a clock);
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
            and the main path's shapes (B1 also for K in {1, 7, 16, 17, 64}, I
            in {1, 100, 129} and W around its chunks and block sizes;
@@ -23,10 +24,10 @@ prints one JSON object on a line of its own:
            in {1, 2, 33, 1025, 15625}, and for I in {1, 7, 8, 9, 100, 127,
            128, 129, 131, 300} and the W above, under a valid mask with zero
            words and a ragged last word), with its device time, the plain
-           version's, and the
-           least time the card could take (``bound_ms``); for B1, B2, B3, B6
-           and B7 also one PyTorch call that computes the same product
-           (``library_ms``);
+           version's, and the least time the card could take (``bound_ms``;
+           for B2 and B7 with the MMAs at the rate measured in ``build``); for
+           B1, B2, B3, B6 and B7 also one PyTorch call that computes the same
+           product (``library_ms``);
   main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
            support 0.2, P=4, K=16, with the kernels' launch counts in that run;
   exact    the FITable on the card is the same for K in {1, 16, 64} and P in
@@ -38,8 +39,8 @@ prints one JSON object on a line of its own:
            thesis database at P=4, K=16: the same FITable as ``main``;
   cluster_mxu  the same with ``ClusterParams(use_mxu=True)`` at K=64: Phase 4
            on B2, one launch per DFS trip, B1 only in the planner; how many
-           of B2's launches took each K and W (and B2 timed at the K most
-           of them take, if that is neither 16 nor 64);
+           of B2's launches took each K and W (it fails if most of them take
+           a shape at which ``kernels`` does not time B2);
   resume   on T20I0.1P50PL10TL40, a run killed after round 0 and resumed
            from its checkpoint gives the unbroken run's FITable, row for row,
            with B1 and with B2;
@@ -90,6 +91,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+PROBE = ROOT / "probes" / "bmma_rate.cu"  # the 1-bit MMA's rate, for B2's and B7's bound
 
 THESIS_DB = "T500I0.1P50PL10TL40"
 SUPPORT = 0.2
@@ -112,6 +114,9 @@ STREAM_ARGS = ["--db", THESIS_DB, "--support", str(SUPPORT), "--blocks", "8",
 # B7 at the profiled demo's I=100, W=15625; B6 on its own path, the
 # DB-Repl-Min profit matrix of the run's classes over the sample's 64 words
 # (its time at the demo's shape stands beside it).
+# B2 is timed at K=16 and at the cluster path's K=64, where all its launches
+# fall (``phase_cluster`` fails if most of them move elsewhere)
+B2_TIMED = ((16, 100, 15625), (64, 100, 15625))
 KERNELS = {
     "multi_extension_supports": {
         "replaces": "src/repro/kernels/multi_support.py:86", "main_shape": (16, 100, 15625),
@@ -201,33 +206,44 @@ def popc_bound(n_bytes: int, n_popc: int, sms: int):
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_popc
 
 
-def mxu_bound(K: int, I: int, W: int):
+def mxu_bound(K: int, I: int, W: int, mma_per_s: float):
     """Least time for B2's product on the tensor cores: the packed bytes
     (each input word read once, each output written once) over the memory
-    rate, or the product's 2·K·I·32·W operations on 0/1 values at the dense
-    int8 rate (the data sheet gives no rate for the 1-bit form B2 uses)."""
-    return tensor_bound(4 * (I * W + K * W + K * I), 2 * K * I * 32 * W)
+    rate, or the product's K·I·32·W bit products in 1-bit MMAs (m16n8k256,
+    32,768 products each) at ``mma_per_s``, the rate this run measured (the
+    data sheet gives none for the 1-bit form B2 uses)."""
+    return mma_bound(4 * (I * W + K * W + K * I), K * I * W / 1024, mma_per_s)
 
 
-def tensor_bound(n_bytes: int, n_ops: int):
-    """Least time to move ``n_bytes`` and do ``n_ops`` operations on 0/1
-    values at the tensor cores' dense int8 rate."""
+def mma_bound(n_bytes: int, n_mma: float, mma_per_s: float):
+    """Least time to move ``n_bytes`` and issue ``n_mma`` 1-bit MMAs at
+    ``mma_per_s``, whichever takes longer."""
     from repro_torch.obs import machine as hw
 
     bytes_ms = n_bytes / hw.HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / hw.INT8_TENSOR_OPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations"), n_bytes, n_ops
+    mma_ms = n_mma / mma_per_s * 1e3
+    return max(bytes_ms, mma_ms), ("bytes" if bytes_ms >= mma_ms else "operations"), n_bytes, n_mma
 
 
-def pair_bound(I: int, W: int, sms: int, mxu: bool):
+def int8_bound_ms(n_bytes: int, n_mma: float) -> float:
+    """The bound with each MMA's 65,536 operations on 0/1 values priced at the
+    tensor cores' dense int8 rate instead: below the card's 1-bit rate, so it
+    is reported beside the bound, not as it."""
+    from repro_torch.obs import machine as hw
+
+    return max(n_bytes / hw.HBM_BYTES_PER_S, n_mma * 65536 / hw.INT8_TENSOR_OPS_PER_S) * 1e3
+
+
+def pair_bound(I: int, W: int, sms: int, mma_per_s: float | None = None):
     """Least time for B6's or B7's ``[I, I]`` counts: the item words and the
     valid mask read once and the output written once, against the work of the
     I(I+1)/2 distinct pairs (S is symmetric): a POPC per pair and word for B6,
-    2·32 operations on 0/1 values per pair and word for B7."""
+    32 bit products per pair and word in 1-bit MMAs at the measured
+    ``mma_per_s`` for B7 (given only for B7)."""
     n_bytes = 4 * (I * W + W + I * I)
     pairs = I * (I + 1) // 2
-    if mxu:
-        return tensor_bound(n_bytes, 2 * pairs * 32 * W)
+    if mma_per_s:
+        return mma_bound(n_bytes, pairs * W / 1024, mma_per_s)
     return popc_bound(n_bytes, pairs * W, sms)
 
 
@@ -283,13 +299,40 @@ def sass_of(lib_path: Path, symbol: str) -> str:
     return found[0]
 
 
-def mma_rate(torch, build, sms):
-    """The issue rate of the 1-bit MMA ``mma_b1`` alone: ``bmma_issue_rate``
-    runs 16 warps a block, each 4096 rounds of 8 independent MMAs on
-    registers, on one block (one SM) and on one block an SM; each block
-    reads its SM clocks, and CUDA events time the whole launch.  An MMA is
-    m16n8k256: 16·8·256 products of bits, 65,536 operations as
-    ``mxu_bound`` counts them."""
+def start_probe_build(build):
+    """Start ``nvcc`` on the 1-bit MMA's probe (``PROBE``), which is not part
+    of the port's library, into a library of its own; returns the process and
+    the library's path."""
+    lib = build.BUILD_DIR / "libbmma_rate.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.unlink(missing_ok=True)
+    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", str(lib),
+           str(PROBE)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
+
+
+def load_probe(proc, lib_path):
+    """The probe's library once its build has ended, with ``bmma_issue_rate``
+    typed."""
+    import ctypes
+
+    out = proc.communicate()[0]
+    if proc.returncode != 0:
+        fail(f"nvcc failed on {PROBE.relative_to(ROOT)}:\n{out}")
+    lib = ctypes.CDLL(str(lib_path))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.bmma_issue_rate.argtypes = [I, I, I, P, P, P]
+    lib.bmma_issue_rate.restype = ctypes.c_int
+    return lib
+
+
+def mma_rate(torch, build, probe, sms):
+    """The issue rate of the 1-bit MMA ``mma_b1`` alone: the probe's
+    ``bmma_issue_rate`` runs 16 warps a block, each 4096 rounds of 8
+    independent MMAs on registers, on one block (one SM) and on one block an
+    SM; each block reads its SM clocks, and CUDA events time the whole
+    launch.  An MMA is m16n8k256: 16·8·256 products of bits, 65,536
+    operations at the int8 pricing."""
     from repro_torch.obs import machine as hw
 
     threads, iters = 512, 4096
@@ -300,7 +343,7 @@ def mma_rate(torch, build, sms):
         sink = torch.zeros(1, dtype=torch.int32, device="cuda")
 
         def launch():
-            build.check(build.library().bmma_issue_rate(
+            build.check(probe.bmma_issue_rate(
                 blocks, threads, iters, cycles.data_ptr(), sink.data_ptr(),
                 torch.cuda.current_stream().cuda_stream), "bmma_issue_rate")
 
@@ -400,8 +443,8 @@ def phase_kernels(torch, dev, mma_per_s):
         timings.append(timed("extension_supports", bs.extension_supports_cuda,
                              bs.extension_supports_plain, 1, 100, W,
                              (words(100, W), words(W))))
-    for K in (16, 64):
-        timings.append(time_mxu(torch, words(100, 15625), words(K, 15625), mma_per_s))
+    for K, I, W in B2_TIMED:
+        timings.append(time_mxu(torch, words(I, W), words(K, W), mma_per_s))
     # both at the demo's shape, every transaction valid as in the demo's
     # whole database (B6's own path, repl_min, is timed in ``phase_exact``)
     for mxu in (False, True):
@@ -418,15 +461,15 @@ def phase_kernels(torch, dev, mma_per_s):
 
 def time_mxu(torch, items, tids, mma_per_s):
     """B2 on these operands: device time, the plain version's and B1's, the
-    bound, its launch facts, the floor the measured 1-bit MMA rate sets
-    (K·I·W/1024 MMAs of m16n8k256 at ``mma_per_s``), and ``torch._int_mm``
-    as the yardstick."""
+    bound at the measured 1-bit MMA rate ``mma_per_s`` (and the int8-priced
+    one beside it), its launch facts, and ``torch._int_mm`` as the
+    yardstick."""
     from repro_torch.kernels import multi_support as ms
 
     (I, W), K = items.shape, tids.shape[0]
     out = ms.multi_extension_supports_mxu_cuda(items, tids)
     err = int((out.long() - ms.multi_extension_supports_mxu_plain(items, tids).long()).abs().max())
-    b_ms, b_by, n_bytes, n_ops = mxu_bound(K, I, W)
+    b_ms, b_by, n_bytes, n_mma = mxu_bound(K, I, W, mma_per_s)
     lib = library_call(torch, items, tids, out)
     return {"name": "multi_extension_supports_mxu", "shape": {"K": K, "I": I, "W": W},
             "max_abs_err": err, "launch": ms.mxu_launch_facts(items, tids),
@@ -437,8 +480,8 @@ def time_mxu(torch, items, tids, mma_per_s):
             "b1_ms": device_ms(torch, lambda: ms.multi_extension_supports_cuda(items, tids),
                                launches=100),
             "library_ms": lib["ms"], "library": lib,
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "int8_ops": n_ops,
-            "mma_floor_ms": K * I * W / 1024 / mma_per_s * 1e3}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes, "mma": n_mma,
+            "mma_ms": n_mma / mma_per_s * 1e3, "int8_bound_ms": int8_bound_ms(n_bytes, n_mma)}
 
 
 def check_sweeps(torch, words, dev, gen) -> int:
@@ -525,8 +568,8 @@ def check_pairs(torch, words) -> int:
 def time_pair(torch, items, valid, sms, mxu, mma_per_s=None):
     """B6 or B7 on ``items`` under ``valid``, with ``torch._int_mm`` of the
     masked bits with themselves as the yardstick; for B7 also its launch
-    facts and the floor the measured 1-bit MMA rate sets (I(I+1)/2·W/1024
-    MMAs of m16n8k256 at ``mma_per_s``)."""
+    facts, its bound at the measured 1-bit MMA rate ``mma_per_s`` and the
+    int8-priced one beside it."""
     from repro_torch.kernels import pair_support as ps
 
     kernel = ps.pair_supports_mxu_cuda if mxu else ps.pair_supports_cuda
@@ -534,18 +577,18 @@ def time_pair(torch, items, valid, sms, mxu, mma_per_s=None):
     I, W = items.shape
     out = kernel(items, valid)
     err = int((out.long() - plain(items, valid).long()).abs().max())
-    b_ms, b_by, n_bytes, n_ops = pair_bound(I, W, sms, mxu)
+    b_ms, b_by, n_bytes, n_ops = pair_bound(I, W, sms, mma_per_s if mxu else None)
     masked = items & valid
     lib = library_call(torch, masked, masked, out)
-    extra = {"launch": ps.mxu_launch_facts(items, valid),
-             "mma_floor_ms": I * (I + 1) // 2 * W / 1024 / mma_per_s * 1e3} if mxu else {}
+    extra = {"launch": ps.mxu_launch_facts(items, valid), "mma_ms": n_ops / mma_per_s * 1e3,
+             "int8_bound_ms": int8_bound_ms(n_bytes, n_ops)} if mxu else {}
     return {"name": "pair_supports_mxu" if mxu else "pair_supports",
             "shape": {"I": I, "W": W}, "max_abs_err": err, **extra,
             "ms": device_ms(torch, lambda: kernel(items, valid), launches=100),
             "plain_ms": device_ms(torch, lambda: plain(items, valid), launches=3, reps=3),
             "library_ms": lib["ms"], "library": lib,
             "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
-            ("int8_ops" if mxu else "popc"): n_ops}
+            ("mma" if mxu else "popc"): n_ops}
 
 
 def time_subset(torch, queries, sets, sms):
@@ -1064,7 +1107,7 @@ def cluster_args(db_name, *extra):
         ["--db", db_name, "--support", str(SUPPORT), "-P", "4", *extra])
 
 
-def phase_cluster(torch, dev, dense, db_name, want, use_mxu, mma_per_s=None):
+def phase_cluster(torch, dev, dense, db_name, want, use_mxu):
     """The cluster launcher's path once (planner, rounds, rebalancing), with
     the launch counts of exactly that run; with ``use_mxu`` Phase 4 runs on
     B2 at K=64, and B1 only in the planner, whose launches a second planner
@@ -1111,21 +1154,16 @@ def phase_cluster(torch, dev, dense, db_name, want, use_mxu, mma_per_s=None):
         fail(f"{name}: B1 must carry the sweeps, not B2: {launches}")
     if launches["extension_supports"] <= 0:
         fail(f"{name}: the planner did not launch B3: {launches}")
-    b2_shapes, b2_modal = None, None
+    b2_shapes = None
     if use_mxu:
         if len(shapes) != launches["multi_extension_supports_mxu"]:
             fail(f"{name}: {len(shapes)} B2 shapes recorded for "
                  f"{launches['multi_extension_supports_mxu']} launches")
         b2_shapes = {axis: {str(v): n for v, n in sorted(collections.Counter(
             shape[j] for shape in shapes).items())} for j, axis in enumerate(("K", "I", "W"))}
-        mk, mi, mw = collections.Counter(shapes).most_common(1)[0][0]
-        if mk not in (16, 64):  # B2 at the shape most launches take
-            gen = torch.Generator(device=dev).manual_seed(1)
-            items, tids = (torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, device=dev,
-                                         generator=gen) for shape in ((mi, mw), (mk, mw)))
-            b2_modal = time_mxu(torch, items, tids, mma_per_s)
-            if b2_modal["max_abs_err"]:
-                fail(f"{name}: B2 disagrees with its plain version at K={mk} I={mi} W={mw}")
+        modal = collections.Counter(shapes).most_common(1)[0][0]
+        if modal not in B2_TIMED:  # the kernels phase must time B2 where its path runs
+            fail(f"{name}: most B2 launches took (K, I, W) = {modal}, which is not timed")
     emit({"phase": name, "db": db_name, "support": SUPPORT, "P": 4, "K": K,
           "use_mxu": use_mxu, "n_fis": res.table.n_fis, "equals_main": True,
           "wall_s": wall_s, "phase_ms": rep.phase_ms, "rounds": rep.n_rounds,
@@ -1136,7 +1174,7 @@ def phase_cluster(torch, dev, dense, db_name, want, use_mxu, mma_per_s=None):
           "estimation_error": rep.estimation_error(),
           "scheduler": res.plan.scheduler_used, "classes": len(res.plan.classes),
           "phase4_trips": trips, "planner_b1_launches": planner_b1, "launches": launches,
-          "b2_launch_shapes": b2_shapes, "b2_at_modal_shape": b2_modal})
+          "b2_launch_shapes": b2_shapes})
     return launches
 
 
@@ -1203,8 +1241,10 @@ def main() -> None:
     # build from the sources in the checkout, never from a library left behind
     t0 = time.perf_counter()
     build.library_path().unlink(missing_ok=True)
+    probe_build = start_probe_build(build)
     lib_path = build.build()
     build.library()
+    probe = load_probe(*probe_build)
     build_s = time.perf_counter() - t0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mma = {}
@@ -1213,8 +1253,9 @@ def main() -> None:
         mma[kernel] = {op: sass.count(op) for op in ("IMMA", "BMMA")}
         if not sum(mma[kernel].values()):
             fail(f"{symbol}'s SASS holds no tensor-core MMA instruction")
-    rate = mma_rate(torch, build, sms)
-    emit({"phase": "build", "seconds": build_s, "sources": [s.name for s in build.SOURCES],
+    rate = mma_rate(torch, build, probe, sms)
+    emit({"phase": "build", "seconds": build_s,
+          "sources": [s.name for s in build.SOURCES] + [PROBE.name],
           "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS),
           "sass_mma": mma, "mma_b1_rate": rate, "nvidia_smi": smi})
 
@@ -1229,8 +1270,7 @@ def main() -> None:
     demo_launches = phase_profile_demo(torch, dev, dense, res.n_fis)
     launches["pair_supports_mxu"] = demo_launches["pair_supports_mxu"]
     phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=False)
-    launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True,
-                                 mma_per_s=rate["all_sms"]["mma_per_s"])
+    launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)

@@ -38,7 +38,6 @@ SIGNATURES = {
     "extension_supports": (_P, _P, _P, _I, _I, _P),
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
     "multi_extension_supports_mxu_facts": (_I, _I, _I, _I, _P),
-    "bmma_issue_rate": (_I, _I, _I, _P, _P, _P),
     "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),
     "block_itemset_supports": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "block_itemset_supports_facts": (_P, _I, _I, _I, _I, _I, _P),

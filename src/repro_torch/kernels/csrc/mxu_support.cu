@@ -24,11 +24,12 @@
 // at 2.8 times this form's time at K=64 (PERF.md); this form needs none.
 //
 // The bound on an H100 SXM: the larger of the packed bytes, (I + K) * W * 4
-// read and K * I * 4 written, over 3.35 TB/s, and the work counted as
-// 2 * K * I * 32 * W 8-bit operations at the int8 rate of 1,979 T/s dense
-// (the data sheet gives no 1-bit rate).  At the cluster path's K=64, I=100, W=15625
-// that is 3.23 us of operations against 3.06 us of bytes; at K=16, 2.16 us
-// of bytes against 0.81 us.  The design keeps the packed words as the only
+// read and K * I * 4 written, over 3.35 TB/s, and the K * I * W / 1024 MMAs
+// (m16n8k256) at the 1-bit MMA's issue rate, which the data sheet does not
+// give and chip_smoke.py measures (probes/bmma_rate.cu: 0.57 an SM a clock,
+// 1.27e11 a second).  At the cluster path's K=64, I=100, W=15625 that is
+// 3.07 us of bytes against 0.77 us of MMAs; at K=16, 2.17 us of bytes
+// against 0.19 us.  The design keeps the packed words as the only
 // traffic to memory: a block stages a 16-prefix x 32-word and a 32-item x
 // 32-word tile in shared memory, each of its four warps takes one 8-word
 // step of the 32 and reuses one A fragment for four item tiles.  Each thread
@@ -165,27 +166,6 @@ MxuGrid mxu_grid(int K, int I, int W, int sms) {
   return {dim3((W + chunk - 1) / chunk, k_tiles, i_tiles), chunk};
 }
 
-// The issue rate of the 1-bit MMA alone: each warp runs `iters` rounds of 8
-// independent MMAs on registers, and each block reports the SM clocks it
-// took.  The sink keeps the MMAs from being dropped.
-__global__ void bmma_rate_kernel(int iters, long long* cycles, int* sink) {
-  int acc[8][4] = {};
-  const uint32_t a = threadIdx.x * 2654435761u, b = a ^ 0x9e3779b9u;
-  __syncthreads();
-  const long long t0 = clock64();
-  for (int it = 0; it < iters; ++it) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) mma_b1(acc[j], a, a + j, a ^ j, ~a, b, b + j);
-  }
-  __syncthreads();
-  const long long t1 = clock64();
-  if (threadIdx.x == 0) cycles[blockIdx.x] = t1 - t0;
-  int s = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s += acc[j][0] + acc[j][1] + acc[j][2] + acc[j][3];
-  if (s == 0x7fffffff) *sink = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -215,15 +195,6 @@ int multi_extension_supports_mxu_facts(int K, int I, int W, int sms, int* facts)
   const MxuGrid g = mxu_grid(K, I, W, sms);
   return static_cast<int>(grid_facts(reinterpret_cast<const void*>(mxu_support_kernel), g.grid,
                                      kThreads, g.chunk, 0, sms, facts));
-}
-
-// Times the 1-bit MMA's issue: `blocks` blocks of `threads` threads, `iters`
-// rounds of 8 MMAs a warp; cycles[b] gets block b's SM clocks.
-int bmma_issue_rate(int blocks, int threads, int iters, void* cycles, void* sink,
-                    void* stream) {
-  bmma_rate_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      iters, static_cast<long long*>(cycles), static_cast<int*>(sink));
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

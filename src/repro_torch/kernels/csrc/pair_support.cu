@@ -26,8 +26,9 @@
 // The bound on an H100 SXM at the profiled demo's I=100, W=15625, counting
 // the I(I+1)/2 distinct pairs: B6 needs 78.9 M POPC, at 16 per clock per SM
 // on 132 SMs at 1.98 GHz 18.9 us, against 6.35 MB of bytes (1.9 us at 3.35
-// TB/s); B7 2 * 5050 * 32 * 15625 operations on 0/1 values, 2.55 us at the
-// dense int8 rate of 1,979 T/s (the data sheet gives no 1-bit rate).
+// TB/s); B7 5050 * 15625 / 1024 MMAs (m16n8k256), 0.61 us at the 1-bit
+// MMA's issue rate that chip_smoke.py measures (the data sheet gives none),
+// so the bytes set B7's bound.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>

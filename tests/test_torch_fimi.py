@@ -219,7 +219,8 @@ def _imported_modules(path):
 
 
 def test_port_sources_import_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
+        (ROOT / "probes").glob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
     for path in files:
         for mod in _imported_modules(path):

@@ -202,3 +202,23 @@ def test_every_c_entry_point_has_a_signature():
         text = src.read_text()
         names |= set(re.findall(r"^int (\w+)\(", text[text.index('extern "C" {'):], re.M))
     assert names == set(build.SIGNATURES)
+
+
+def test_mxu_designs_apply_to_the_sources(tmp_path):
+    """Every redesign of B2 and B7 that ``probes/mxu_designs.py`` times still
+    lays over the port's current sources: each diff's hunks match once, and
+    each design changes B2's or B7's source."""
+    import importlib.util
+    from pathlib import Path
+
+    from repro_torch.kernels import build
+
+    path = Path(__file__).resolve().parents[1] / "probes" / "mxu_designs.py"
+    spec = importlib.util.spec_from_file_location("mxu_designs", path)
+    designs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(designs)
+    for name in designs.NAMES:
+        csrc = designs.sources_of(name, build.CSRC, tmp_path)
+        changed = [src for src in designs.SOURCES
+                   if (csrc / src).read_text() != (build.CSRC / src).read_text()]
+        assert changed, name

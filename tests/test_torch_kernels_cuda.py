@@ -35,6 +35,13 @@ MXU_SHAPES = [
     (k, i, w) for k in (1, 13, 16, 17, 64) for i in (1, 7, 8, 33, 100, 131)
     for w in (1, 2, 33, 1025)
 ] + [(16, 100, 15625), (64, 100, 15625), (0, 10, 8), (4, 0, 8), (4, 10, 0)]
+# B2's edges: K around its m-tiles and tiles of 16, I around its n-tiles of 8
+# and tiles of 32, W around its stages of 32 words and its chunks, odd and
+# 1 mod 4 (rows start 4 bytes apart from a 16-byte boundary)
+B2_RAGGED = [(k, i, w) for k in (1, 15, 16, 17, 63, 64, 65, 129)
+             for i in (1, 7, 8, 9, 100, 127, 128, 129, 131)
+             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
+MXU_SHAPES += B2_RAGGED
 SINGLE_SHAPES = [
     (7, 2), (16, 1), (33, 9), (130, 33), (53, 300),
     (100, 64), (100, 15625), (1, 1), (257, 4097), (0, 9), (9, 0),
@@ -136,24 +143,6 @@ def test_mxu_kernel_matches_plain_and_b1(cuda, k, i, w):
     torch.cuda.synchronize()
     assert ms.multi_extension_supports_mxu_cuda.launches == before + (k * i * w > 0)
     assert got.is_cuda and got.dtype == torch.int32 and got.shape == (k, i)
-    assert torch.equal(got, ms.multi_extension_supports_mxu_plain(items, tids))
-    assert torch.equal(got, ms.multi_extension_supports_cuda(items, tids))
-
-
-# B2's edges: K around its m-tiles and tiles of 16, I around its n-tiles of 8
-# and tiles of 32, W around its stages of 32 words and its chunks, odd and
-# 1 mod 4 (rows start 4 bytes apart from a 16-byte boundary)
-B2_RAGGED = [(k, i, w) for k in (1, 15, 16, 17, 63, 64, 65, 129)
-             for i in (1, 7, 8, 9, 100, 127, 128, 129, 131)
-             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
-
-
-@pytest.mark.parametrize("k,i,w", B2_RAGGED)
-def test_mxu_kernel_ragged_edges(cuda, k, i, w):
-    items = bm.from_reference(_words((i, w), seed=7 * i + w)).to(cuda)
-    tids = bm.from_reference(_words((k, w), seed=11 * k + w)).to(cuda)
-    got = ms.multi_extension_supports_mxu_cuda(items, tids)
-    torch.cuda.synchronize()
     assert torch.equal(got, ms.multi_extension_supports_mxu_plain(items, tids))
     assert torch.equal(got, ms.multi_extension_supports_cuda(items, tids))
 
@@ -356,6 +345,11 @@ def test_sweep_wrappers_check_their_inputs(cuda):
 # classes against the sample's 64 words
 PAIR_SHAPES = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1025)] + [
     (100, 15625), (512, 64), (0, 8), (9, 0)]
+# B7's edges: I around its tiles of 32 and their fragments, W around its
+# stages and chunks
+B7_RAGGED = [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
+             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
+PAIR_SHAPES += B7_RAGGED
 
 
 def _valid(w, seed):
@@ -385,22 +379,6 @@ def test_pair_kernels_match_plain(cuda, i, w):
     assert torch.equal(got, ps.pair_supports_plain(items, valid))
     assert torch.equal(got_mxu, ps.pair_supports_mxu_plain(items, valid))
     assert torch.equal(got_mxu, got)
-
-
-# B7's edges: I around its tiles of 32 and their fragments, W around its
-# stages and chunks, under a valid mask with whole, empty and ragged words
-B7_RAGGED = [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
-             for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
-
-
-@pytest.mark.parametrize("i,w", B7_RAGGED)
-def test_pair_mxu_kernel_ragged_edges(cuda, i, w):
-    items = bm.from_reference(_words((i, w), seed=13 * i + w)).to(cuda)
-    valid = bm.from_reference(_valid(w, seed=w + 17)).to(cuda)
-    got = ps.pair_supports_mxu_cuda(items, valid)
-    torch.cuda.synchronize()
-    assert torch.equal(got, ps.pair_supports_mxu_plain(items, valid))
-    assert torch.equal(got, ps.pair_supports_cuda(items, valid))
 
 
 def test_pair_mxu_kernel_launch_facts(cuda):
