@@ -8,10 +8,12 @@ prints one JSON object on a line of its own:
 
   device   the card (``nvidia-smi`` name and power limit), torch and CUDA;
   build    seconds to compile the kernels from ``src/repro_torch/kernels/csrc``
-           (and the probe ``probes/bmma_rate.cu`` beside them), the
-           tensor-core MMA instructions in B2's and B7's SASS, and the 1-bit
-           MMA's issue rate (the probe's register-only loop of ``mma_b1`` on
-           one SM and on all of them, in MMAs an SM a clock);
+           (and the probes ``probes/bmma_rate.cu`` and
+           ``probes/launch_floor.cu`` beside them), the tensor-core MMA
+           instructions in B2's and B7's SASS, the 1-bit MMA's issue rate
+           (the probe's register-only loop of ``mma_b1`` on one SM and on all
+           of them, in MMAs an SM a clock), and the launch floor (an empty
+           kernel of one block of 32 threads, timed as every kernel is);
   kernels  each kernel bit-equal to its plain torch version on ragged shapes
            and the main path's shapes (B1 also for K in {1, 7, 16, 17, 64}, I
            in {1, 100, 129} and W around its chunks and block sizes;
@@ -20,14 +22,17 @@ prints one JSON object on a line of its own:
            {1, 2, 3} and T, F off its tiles; B2 to its plain version and B1
            for K in {1, 15, 16, 17, 63, 64, 65, 129}, I in {1, 7, 8, 9, 100,
            127, 128, 129, 131} and W in {1, 7, 8, 9, 118, 119, 15625, 16384};
+           B3 for I in {1, 9, 100, 131} and W around 64, 1024 and 8192;
            B6 and B7, and B7 to B6, for I in {1, 7, 8, 17, 33, 100, 131} and W
            in {1, 2, 33, 1025, 15625}, and for I in {1, 7, 8, 9, 100, 127,
-           128, 129, 131, 300} and the W above, under a valid mask with zero
-           words and a ragged last word), with its device time, the plain
+           128, 129, 131, 300} and the W above, B6's edges (W around 512 and
+           4096), under a valid mask with zero words and a ragged last
+           word), with its device time, the plain
            version's, and the least time the card could take (``bound_ms``;
            for B2 and B7 with the MMAs at the rate measured in ``build``); for
            B1, B2, B3, B6 and B7 also one PyTorch call that computes the same
-           product (``library_ms``);
+           product (``library_ms``); for B3 and B6 also the empty kernel at
+           the same grid, threads and cluster (``empty_ms``);
   main     the launcher's path on the thesis database T500I0.1P50PL10TL40 at
            support 0.2, P=4, K=16, with the kernels' launch counts in that run;
   exact    the FITable on the card is the same for K in {1, 16, 64} and P in
@@ -64,12 +69,14 @@ prints one JSON object on a line of its own:
   profile  the main path, both cluster paths and the serve replay once more
            under ``torch.profiler``: the card's busy time and share of the
            wall, and the kernels' share of that.
-  launch_facts  how B1, B2, B5 and B7 were launched at each shape they were
-           timed at: grid, threads, cluster size (B1), chunk, shared bytes,
-           resident blocks an SM, waves, registers and spilled bytes a
-           thread.
+  launch_facts  how B1, B2, B3, B5, B6 and B7 were launched at each shape
+           they were timed at: grid, threads, cluster size (B1, B3, B6),
+           chunk, shared bytes, resident blocks an SM, waves, registers and
+           spilled bytes a thread; it fails if B3 or B6 spills or takes more
+           than one wave at a timed shape.
 
-Then the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+Then the ``{"kernels": [...], "launch_floor_ms": ...}`` summary, the
+``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line.  Without CUDA, or outside a checkout, it exits 1 and prints no result.
 The script imports nothing of JAX.
@@ -78,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import json
 import shutil
 import statistics
@@ -91,7 +99,14 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-PROBE = ROOT / "probes" / "bmma_rate.cu"  # the 1-bit MMA's rate, for B2's and B7's bound
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the probes, each built into a library of its own: source, entry point and its
+# argument types.  The 1-bit MMA's rate, for B2's and B7's bound; an empty
+# kernel, the launch floor.
+PROBES = {"bmma_rate": (ROOT / "probes" / "bmma_rate.cu", "bmma_issue_rate",
+                        (_I, _I, _I, _P, _P, _P)),
+          "launch_floor": (ROOT / "probes" / "launch_floor.cu", "empty_launch",
+                           (_I, _I, _I, _P))}
 
 THESIS_DB = "T500I0.1P50PL10TL40"
 SUPPORT = 0.2
@@ -299,31 +314,41 @@ def sass_of(lib_path: Path, symbol: str) -> str:
     return found[0]
 
 
-def start_probe_build(build):
-    """Start ``nvcc`` on the 1-bit MMA's probe (``PROBE``), which is not part
-    of the port's library, into a library of its own; returns the process and
-    the library's path."""
-    lib = build.BUILD_DIR / "libbmma_rate.so"
+def start_probe_build(build, name):
+    """Start ``nvcc`` on the source of the probe ``PROBES[name]``, which is not
+    part of the port's library, into a library of its own; returns the process
+    and the library's path."""
+    lib = build.BUILD_DIR / f"lib{name}.so"
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib.unlink(missing_ok=True)
     cmd = [build._nvcc(), *build.NVCC_FLAGS, "-I", str(build.CSRC), "-shared", "-o", str(lib),
-           str(PROBE)]
+           str(PROBES[name][0])]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), lib
 
 
-def load_probe(proc, lib_path):
-    """The probe's library once its build has ended, with ``bmma_issue_rate``
+def load_probe(name, proc, lib_path):
+    """The probe's library once its build has ended, with its entry point
     typed."""
-    import ctypes
-
+    source, entry, argtypes = PROBES[name]
     out = proc.communicate()[0]
     if proc.returncode != 0:
-        fail(f"nvcc failed on {PROBE.relative_to(ROOT)}:\n{out}")
+        fail(f"nvcc failed on {source.relative_to(ROOT)}:\n{out}")
     lib = ctypes.CDLL(str(lib_path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.bmma_issue_rate.argtypes = [I, I, I, P, P, P]
-    lib.bmma_issue_rate.restype = ctypes.c_int
+    fn = getattr(lib, entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
     return lib
+
+
+def empty_ms(torch, build, floor, blocks, threads, cluster):
+    """Device time of one launch of the empty kernel (``probes/launch_floor.cu``)
+    over ``blocks`` blocks of ``threads`` threads in clusters of ``cluster``,
+    timed as every kernel is (``device_ms``, a graph of 100 launches)."""
+    def launch():
+        build.check(floor.empty_launch(blocks, threads, cluster,
+                                       torch.cuda.current_stream().cuda_stream), "empty_launch")
+
+    return device_ms(torch, launch, launches=100)
 
 
 def mma_rate(torch, build, probe, sms):
@@ -388,6 +413,10 @@ def phase_kernels(torch, dev, mma_per_s):
                      for w in (1, 3, 5, 4096, 4097, 15625, 16384, 16385)]
     single_shapes = [(7, 2), (16, 1), (33, 9), (130, 33), (53, 300), (257, 4097),
                      (1, 1), (0, 9), (9, 0), (100, 64), (100, 15625)]
+    # B3's edges: I around its row groups, W around its launch shapes (64
+    # and 8192 words) and its chunks of 1024
+    single_shapes += [(i, w) for i in (1, 9, 100, 131)
+                      for w in (63, 65, 1025, 8191, 8192, 8193, 16385)]
     for K, I, W in multi_shapes:
         items, tids = words(I, W), words(K, W)
         got = ms.multi_extension_supports_cuda(items, tids)
@@ -426,7 +455,7 @@ def phase_kernels(torch, dev, mma_per_s):
         items, tids = args[0], args[1].reshape(K, W)
         lib = library_call(torch, items, tids, out.reshape(K, I))
         facts = ms.launch_facts(items, tids) if kernel is ms.multi_extension_supports_cuda \
-            else None
+            else bs.launch_facts(*args)
         return {"name": name, "shape": {"K": K, "I": I, "W": W}, "max_abs_err": err,
                 "launch": facts,
                 "ms": device_ms(torch, lambda: kernel(*args), launches=100),
@@ -540,13 +569,16 @@ def check_pairs(torch, words) -> int:
     """B6 and B7 bit-equal to their plain versions, and B7 to B6, for I in
     {1, 7, 8, 17, 33, 100, 131} and W in {1, 2, 33, 1025, 15625}, for B7's
     edges (I in {1, 7, 8, 9, 100, 127, 128, 129, 131, 300}, W in {1, 7, 8, 9,
-    118, 119, 15625, 16384}), plus empty I and W, under a valid mask with
+    118, 119, 15625, 16384}), for B6's (I in {9, 100, 131}, W in {511, 512,
+    1025, 4095, 4096, 4097}), plus empty I and W, under a valid mask with
     whole words, zero words and a ragged last word; returns the count."""
     from repro_torch.kernels import pair_support as ps
 
     shapes = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1025, 15625)]
     shapes += [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
                for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
+    # B6's edges: W around its block sizes (512 words) and clusters (1024, 4096)
+    shapes += [(i, w) for i in (9, 100, 131) for w in (511, 512, 1025, 4095, 4096, 4097)]
     shapes += [(0, 8), (9, 0)]
     for I, W in shapes:
         items, valid = words(I, W), words(W)
@@ -566,9 +598,9 @@ def check_pairs(torch, words) -> int:
 
 
 def time_pair(torch, items, valid, sms, mxu, mma_per_s=None):
-    """B6 or B7 on ``items`` under ``valid``, with ``torch._int_mm`` of the
-    masked bits with themselves as the yardstick; for B7 also its launch
-    facts, its bound at the measured 1-bit MMA rate ``mma_per_s`` and the
+    """B6 or B7 on ``items`` under ``valid``, with its launch facts and
+    ``torch._int_mm`` of the masked bits with themselves as the yardstick; for
+    B7 also its bound at the measured 1-bit MMA rate ``mma_per_s`` and the
     int8-priced one beside it."""
     from repro_torch.kernels import pair_support as ps
 
@@ -581,7 +613,8 @@ def time_pair(torch, items, valid, sms, mxu, mma_per_s=None):
     masked = items & valid
     lib = library_call(torch, masked, masked, out)
     extra = {"launch": ps.mxu_launch_facts(items, valid), "mma_ms": n_ops / mma_per_s * 1e3,
-             "int8_bound_ms": int8_bound_ms(n_bytes, n_ops)} if mxu else {}
+             "int8_bound_ms": int8_bound_ms(n_bytes, n_ops)} if mxu \
+        else {"launch": ps.launch_facts(items, valid)}
     return {"name": "pair_supports_mxu" if mxu else "pair_supports",
             "shape": {"I": I, "W": W}, "max_abs_err": err, **extra,
             "ms": device_ms(torch, lambda: kernel(items, valid), launches=100),
@@ -1241,10 +1274,10 @@ def main() -> None:
     # build from the sources in the checkout, never from a library left behind
     t0 = time.perf_counter()
     build.library_path().unlink(missing_ok=True)
-    probe_build = start_probe_build(build)
+    probe_builds = {name: start_probe_build(build, name) for name in PROBES}
     lib_path = build.build()
     build.library()
-    probe = load_probe(*probe_build)
+    probe, floor = (load_probe(name, *probe_builds[name]) for name in PROBES)
     build_s = time.perf_counter() - t0
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     mma = {}
@@ -1254,10 +1287,12 @@ def main() -> None:
         if not sum(mma[kernel].values()):
             fail(f"{symbol}'s SASS holds no tensor-core MMA instruction")
     rate = mma_rate(torch, build, probe, sms)
+    launch_floor_ms = empty_ms(torch, build, floor, 1, 32, 1)
     emit({"phase": "build", "seconds": build_s,
-          "sources": [s.name for s in build.SOURCES] + [PROBE.name],
+          "sources": [s.name for s in build.SOURCES] + [p[0].name for p in PROBES.values()],
           "library": str(lib_path.relative_to(ROOT)), "nvcc_flags": list(build.NVCC_FLAGS),
-          "sass_mma": mma, "mma_b1_rate": rate, "nvidia_smi": smi})
+          "sass_mma": mma, "mma_b1_rate": rate, "launch_floor_ms": launch_floor_ms,
+          "nvidia_smi": smi})
 
     timings = phase_kernels(torch, dev, rate["all_sms"]["mma_per_s"])
 
@@ -1281,16 +1316,26 @@ def main() -> None:
     launches["block_itemset_supports"] = launches_stream["block_itemset_supports"]
     phase_profile(torch, dev, dense, serve_run)
 
-    emit({"phase": "launch_facts", "nvidia_smi": smi,
-          "shapes": [{"name": t["name"], "shape": t["shape"], **t["launch"]}
-                     for t in timings + stream_timings if t.get("launch")]})
+    # B3 and B6: one wave and no spills at every timed shape, and the empty
+    # kernel at the same launch beside each
+    for t in timings + [repl_timing]:
+        f = t.get("launch")
+        if t["name"] in ("extension_supports", "pair_supports"):
+            if f["local_bytes"] or f["waves"] != 1:
+                fail(f"{t['name']} spills or takes more than one wave at {t['shape']}: {f}")
+            t["empty_ms"] = empty_ms(torch, build, floor, f["grid_x"], f["threads"], f["cluster"])
+    emit({"phase": "launch_facts", "nvidia_smi": smi, "launch_floor_ms": launch_floor_ms,
+          "shapes": [{"name": t["name"], "shape": t["shape"], **t["launch"],
+                      **({"empty_ms": t["empty_ms"]} if "empty_ms" in t else {})}
+                     for t in timings + [repl_timing] + stream_timings if t.get("launch")]})
 
     # each kernel at the shape where its path spends its time: B4 at the rules
     # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index, B6 on
     # the repl_min tidlists, B7 at the profiled demo's I=100, W=15625
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "empty_ms")
     b6_demo = next(t for t in timings if t["name"] == "pair_supports")
-    repl_timing["at_demo_shape"] = {key: b6_demo[key] for key in keys}
+    repl_timing["at_demo_shape"] = {key: b6_demo[key] for key in keys if key in b6_demo}
     summary = []
     for t in [t for t in timings if t is not b6_demo] + [repl_timing] + serve_timings[1:] \
             + [stream_timing]:
@@ -1300,7 +1345,7 @@ def main() -> None:
                             "replaces": k["replaces"], "launches": launches[t["name"]],
                             **{key: t[key] for key in keys + ("at_demo_shape",)
                                if key in t}})
-    emit({"kernels": summary})
+    emit({"kernels": summary, "launch_floor_ms": launch_floor_ms})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

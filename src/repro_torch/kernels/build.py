@@ -23,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (CSRC / "support.cu", CSRC / "mxu_support.cu", CSRC / "subset_query.cu",
            CSRC / "delta_support.cu", CSRC / "pair_support.cu")
 # included by the sources: part of what the library is built from
-HEADERS = (CSRC / "bmma.cuh", CSRC / "occupancy.cuh")
+HEADERS = (CSRC / "bmma.cuh", CSRC / "occupancy.cuh", CSRC / "warp_sum.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -36,15 +36,24 @@ SIGNATURES = {
     "multi_extension_supports": (_P, _P, _P, _I, _I, _I, _I, _P),
     "multi_extension_supports_facts": (_I, _I, _I, _I, _P),
     "extension_supports": (_P, _P, _P, _I, _I, _P),
+    "extension_supports_facts": (_I, _I, _P),
     "multi_extension_supports_mxu": (_P, _P, _P, _I, _I, _I, _I, _P),
     "multi_extension_supports_mxu_facts": (_I, _I, _I, _I, _P),
     "subset_superset_counts": (_P, _P, _P, _P, _I, _I, _I, _P),
     "block_itemset_supports": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
     "block_itemset_supports_facts": (_P, _I, _I, _I, _I, _I, _P),
     "pair_supports": (_P, _P, _P, _I, _I, _I, _P),
+    "pair_supports_facts": (_I, _I, _I, _P),
     "pair_supports_mxu": (_P, _P, _P, _I, _I, _I, _P),
     "pair_supports_mxu_facts": (_I, _I, _I, _P),
 }
+
+# What the ``*_facts`` entry points report, in their order: B1, B3 and B6
+# (``cluster_facts`` in ``csrc/occupancy.cuh``), B2 and B7 (``grid_facts``).
+CLUSTER_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words",
+                 "blocks_per_sm", "clusters_resident", "waves", "registers", "local_bytes")
+GRID_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "chunk_words", "smem_bytes",
+              "blocks_per_sm", "waves", "registers", "local_bytes")
 
 
 def _nvcc() -> str:
@@ -103,6 +112,19 @@ def library() -> ctypes.CDLL:
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def launch_facts(name: str, layout: tuple, device, *args: int) -> dict:
+    """The facts that the C entry point ``name`` (a ``*_facts``) reports for
+    ``args`` on the CUDA ``device``, named by ``layout``.  Nothing is
+    launched."""
+    import torch
+
+    facts = (ctypes.c_int * len(layout))()
+    with torch.cuda.device(device):
+        status = getattr(library(), name)(*args, ctypes.addressof(facts))
+    check(status, name)
+    return dict(zip(layout, facts))
 
 
 def check(status: int, name: str) -> None:

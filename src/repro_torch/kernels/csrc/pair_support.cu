@@ -16,25 +16,36 @@
 // the caller's stream, allocates nothing, and returns cudaGetLastError().
 //
 // S is symmetric, so both kernels launch only the tile pairs (ti, tj) with
-// ti <= tj, one per blockIdx.x, and a block of an off-diagonal pair adds each
-// count to S[i, j] and to S[j, i].  A diagonal pair computes its whole square
-// tile and stores each count once.  W is split over blockIdx.y to fill the
-// SMs, and the chunks' partial counts are added with integer atomics into the
-// zeroed output, exact in any order.  valid_tid masks the words before they
-// are counted; rows past I and words past W read as zero and are never stored.
+// ti <= tj, and a block of an off-diagonal pair writes each count to S[i, j]
+// and to S[j, i].  A diagonal pair computes its whole square tile and writes
+// each count once.  valid_tid masks the words before they are counted.
+//
+// B6 stores every output once, with no zeroing launch and no atomics: a tile
+// pair's W is cut into chunks, one block each, and the blocks of one pair form
+// a thread-block cluster (as B1's tiles do, support.cu) whose first block adds
+// their counts through distributed shared memory; rows past I read row I - 1
+// again and are never stored.  B7 splits W over the grid's y axis and adds the
+// chunks' partial counts with integer atomics into the zeroed output, exact in
+// any order; rows past I and words past W read as zero and are never stored.
 //
 // The bound on an H100 SXM at the profiled demo's I=100, W=15625, counting
 // the I(I+1)/2 distinct pairs: B6 needs 78.9 M POPC, at 16 per clock per SM
 // on 132 SMs at 1.98 GHz 18.9 us, against 6.35 MB of bytes (1.9 us at 3.35
 // TB/s); B7 5050 * 15625 / 1024 MMAs (m16n8k256), 0.61 us at the 1-bit
 // MMA's issue rate that chip_smoke.py measures (the data sheet gives none),
-// so the bytes set B7's bound.
+// so the bytes set B7's bound.  B6's 13 x 13 tiles of 8 rows do 5824 pairs'
+// POPC a word for the 5050 it needs (rows past I, both halves of a diagonal
+// tile), 21.8 us at that rate.
 #include <cmath>
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "bmma.cuh"
 #include "occupancy.cuh"
+#include "warp_sum.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -48,90 +59,180 @@ __device__ __forceinline__ void tile_pair(long long p, int& ti, int& tj) {
   ti = static_cast<int>(p - static_cast<long long>(j) * (j + 1) / 2);
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  return v;
-}
-
 // --- B6: integer pipes --------------------------------------------------
 // B1's register tiling (support.cu) with both operands the masked items: each
 // thread keeps kTile x kTile counters, so a loaded word of one row serves
 // kTile popcounts.  The valid mask is ANDed into the row-i words only:
-// popc((a & v) & (b & v)) = popc((a & v) & b).
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+// popc((a & v) & (b & v)) = popc((a & v) & b).  The 64 counters are two sets
+// of 32 for the warp's transposing sum.  Blocks are wide (128 threads) where W
+// gives each thread 4 words, else narrow (64 threads; W = 64 on the repl_min
+// path); both at most 128 registers a thread, so an SM holds 4 wide or 8
+// narrow ones (three words a step, or 256-thread blocks, spilled or ran
+// slower on the H100).  A pair's cluster has at most 8 blocks (the portable
+// cluster size), each with a chunk of at least 4 words a thread.
 constexpr int kTile = 8;
-constexpr int kMinChunk = 4 * kThreads;
-constexpr int kBlocksPerSm = 2;
+constexpr int kCounts = kTile * kTile;
+constexpr int kPairWide = 128;
+constexpr int kPairNarrow = 64;
+constexpr int kPairMaxCluster = 8;
+constexpr int kSteps = 2;
 
-// grid = (tile pairs, W chunks); block = kThreads threads striding the chunk
-// with coalesced 32-bit loads.
-__global__ void __launch_bounds__(kThreads)
+// grid = (tile pairs x cluster), clusters of (cluster, 1, 1): block `rank` of
+// pair p's cluster sweeps words [rank * chunk, (rank + 1) * chunk) with
+// coalesced 32-bit loads.
+template <int kT>
+__global__ void __launch_bounds__(kT, 4 * kPairWide / kT)
 pair_support_kernel(const uint32_t* __restrict__ items,
                     const uint32_t* __restrict__ valid,
-                    int32_t* __restrict__ out, int I, int W, int chunk) {
+                    int32_t* __restrict__ out, int I, int W, int chunk, int cluster_size) {
+  const long long pair = blockIdx.x / cluster_size;
+  const int rank = static_cast<int>(blockIdx.x - pair * cluster_size);
   int ti, tj;
-  tile_pair(blockIdx.x, ti, tj);
+  tile_pair(pair, ti, tj);
   const int i0 = ti * kTile;
   const int j0 = tj * kTile;
-  const int w_begin = blockIdx.y * chunk;
+  const int w_begin = rank * chunk;
   const int w_end = min(W, w_begin + chunk);
 
-  const uint32_t* a_row[kTile];
-  const uint32_t* b_row[kTile];
-  bool a_ok[kTile], b_ok[kTile];
+  // Rows of a tile as word offsets from its first row (at most 7 W, which an
+  // int holds): fewer registers than a pointer a row.
+  const uint32_t* a_base = items + static_cast<size_t>(i0) * W;
+  const uint32_t* b_base = items + static_cast<size_t>(j0) * W;
+  int a_off[kTile], b_off[kTile];
 #pragma unroll
   for (int r = 0; r < kTile; ++r) {
-    a_ok[r] = i0 + r < I;
-    b_ok[r] = j0 + r < I;
-    a_row[r] = items + static_cast<size_t>(a_ok[r] ? i0 + r : 0) * W;
-    b_row[r] = items + static_cast<size_t>(b_ok[r] ? j0 + r : 0) * W;
+    a_off[r] = min(r, I - 1 - i0) * W;
+    b_off[r] = min(r, I - 1 - j0) * W;
   }
 
-  int acc[kTile][kTile];
+  // counter (ii, jj) is acc[ii / 4][(ii % 4) * kTile + jj]
+  int acc[2][32];
 #pragma unroll
-  for (int ii = 0; ii < kTile; ++ii)
+  for (int h = 0; h < 2; ++h)
 #pragma unroll
-    for (int jj = 0; jj < kTile; ++jj) acc[ii][jj] = 0;
+    for (int c = 0; c < 32; ++c) acc[h][c] = 0;
 
-  for (int w = w_begin + threadIdx.x; w < w_end; w += kThreads) {
+  // kSteps words a thread per step: their 17 loads each are all in flight
+  // at once, and a counter takes their popcounts in one three-input add.
+  int w = w_begin + threadIdx.x;
+  for (; w + (kSteps - 1) * kT < w_end; w += kSteps * kT) {
+    uint32_t a[kSteps][kTile];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const uint32_t v = __ldg(valid + w + u * kT);
+#pragma unroll
+      for (int ii = 0; ii < kTile; ++ii) a[u][ii] = __ldg(a_base + (a_off[ii] + w + u * kT)) & v;
+    }
+#pragma unroll
+    for (int jj = 0; jj < kTile; ++jj) {
+      uint32_t b[kSteps];
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) b[u] = __ldg(b_base + (b_off[jj] + w + u * kT));
+#pragma unroll
+      for (int ii = 0; ii < kTile; ++ii) {
+        int sum = 0;
+#pragma unroll
+        for (int u = 0; u < kSteps; ++u) sum += __popc(a[u][ii] & b[u]);
+        acc[ii / 4][(ii % 4) * kTile + jj] += sum;
+      }
+    }
+  }
+#pragma unroll 1
+  for (; w < w_end; w += kT) {
     const uint32_t v = __ldg(valid + w);
     uint32_t a[kTile];
 #pragma unroll
-    for (int ii = 0; ii < kTile; ++ii) a[ii] = a_ok[ii] ? __ldg(a_row[ii] + w) & v : 0u;
+    for (int ii = 0; ii < kTile; ++ii) a[ii] = __ldg(a_base + (a_off[ii] + w)) & v;
 #pragma unroll
     for (int jj = 0; jj < kTile; ++jj) {
-      const uint32_t b = b_ok[jj] ? __ldg(b_row[jj] + w) : 0u;
+      const uint32_t b = __ldg(b_base + (b_off[jj] + w));
 #pragma unroll
-      for (int ii = 0; ii < kTile; ++ii) acc[ii][jj] += __popc(a[ii] & b);
+      for (int ii = 0; ii < kTile; ++ii) acc[ii / 4][(ii % 4) * kTile + jj] += __popc(a[ii] & b);
     }
   }
 
-  // Block reduction: warp shuffles, one partial per warp in shared memory,
-  // then one atomic add per output (two off the diagonal) and block.
-  __shared__ int partial[kWarps][kTile * kTile];
+  // Warp, then block: lane l of each warp holds counters l and 32 + l, the
+  // warps' sums meet in shared memory, and block_sum[c] is the block's count
+  // of counter c.
+  __shared__ int warp_sums[kT / 32][kCounts];
+  __shared__ int block_sum[kCounts];
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int ii = 0; ii < kTile; ++ii)
-#pragma unroll
-    for (int jj = 0; jj < kTile; ++jj) {
-      const int v = warp_sum(acc[ii][jj]);
-      if (lane == 0) partial[warp][ii * kTile + jj] = v;
-    }
+  warp_transpose_sum<16>(acc[0], lane);
+  warp_transpose_sum<16>(acc[1], lane);
+  warp_sums[threadIdx.x >> 5][lane] = acc[0][0];
+  warp_sums[threadIdx.x >> 5][32 + lane] = acc[1][0];
   __syncthreads();
-  if (threadIdx.x < kTile * kTile) {
-    const int i = i0 + threadIdx.x / kTile;
-    const int j = j0 + threadIdx.x % kTile;
-    if (i < I && j < I) {
-      int s = 0;
+  int s = 0;
+  if (threadIdx.x < kCounts) {
 #pragma unroll
-      for (int wp = 0; wp < kWarps; ++wp) s += partial[wp][threadIdx.x];
-      atomicAdd(out + static_cast<size_t>(i) * I + j, s);
-      if (ti != tj) atomicAdd(out + static_cast<size_t>(j) * I + i, s);
-    }
+    for (int wp = 0; wp < kT / 32; ++wp) s += warp_sums[wp][threadIdx.x];
+    block_sum[threadIdx.x] = s;
   }
+  const int i = i0 + threadIdx.x / kTile;
+  const int j = j0 + threadIdx.x % kTile;
+  const bool store = threadIdx.x < kCounts && i < I && j < I;
+  if (cluster_size == 1) {  // the block holds the whole count
+    if (store) {
+      out[static_cast<size_t>(i) * I + j] = s;
+      if (ti != tj) out[static_cast<size_t>(j) * I + i] = s;
+    }
+    return;
+  }
+  // Cluster: the first block adds every block's counts from its shared
+  // memory and stores each output once.  The second barrier keeps every block
+  // (and its shared memory) alive until those reads are done.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  if (rank == 0 && store) {
+    s = 0;
+    for (int r = 0; r < cluster_size; ++r)
+      s += *cluster.map_shared_rank(&block_sum[threadIdx.x], r);
+    out[static_cast<size_t>(i) * I + j] = s;
+    if (ti != tj) out[static_cast<size_t>(j) * I + i] = s;
+  }
+  cluster.sync();
+}
+
+// How B6 is launched for one call: `pairs` clusters of `cluster` blocks.
+struct PairPlan {
+  long long pairs;
+  int threads, cluster, chunk;
+};
+
+const void* pair_kernel(int threads) {
+  return threads == kPairWide ? reinterpret_cast<const void*>(pair_support_kernel<kPairWide>)
+                              : reinterpret_cast<const void*>(pair_support_kernel<kPairNarrow>);
+}
+
+dim3 pair_grid(const PairPlan& p) { return dim3(static_cast<unsigned>(p.pairs * p.cluster)); }
+
+// Wide blocks where W gives each thread 4 words, else narrow ones; a cluster
+// a tile pair, sized by pick_cluster (occupancy.cuh): one wave, the least work
+// on the busiest SM.  With W = 0 every block stores zeros.
+cudaError_t plan_pair(int I, int W, int sms, PairPlan* p) {
+  const long long tiles = ceil_div(I, kTile);
+  p->pairs = tiles * (tiles + 1) / 2;
+  p->threads = W >= 4 * kPairWide ? kPairWide : kPairNarrow;
+  const int most = max(1, min(kPairMaxCluster, W / (4 * p->threads)));
+  const cudaError_t err =
+      pick_cluster(pair_kernel(p->threads), p->threads, p->pairs, most, sms, &p->cluster);
+  p->chunk = static_cast<int>(ceil_div(W, p->cluster));
+  return err;
+}
+
+template <int kT>
+cudaError_t launch_pair(const PairPlan& p, const void* items, const void* valid, void* out,
+                        int I, int W, cudaStream_t s) {
+  const uint32_t* a = static_cast<const uint32_t*>(items);
+  const uint32_t* v = static_cast<const uint32_t*>(valid);
+  int32_t* o = static_cast<int32_t*>(out);
+  if (p.cluster == 1) {
+    pair_support_kernel<kT><<<pair_grid(p), kT, 0, s>>>(a, v, o, I, W, p.chunk, 1);
+    return cudaSuccess;
+  }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(pair_grid(p), kT, p.cluster, s, &attr);
+  return cudaLaunchKernelEx(&cfg, pair_support_kernel<kT>, a, v, o, I, W, p.chunk, p.cluster);
 }
 
 // --- B7: tensor cores ---------------------------------------------------
@@ -279,25 +380,29 @@ extern "C" {
 
 // items uint32[I, W], valid uint32[W] -> out int32[I, I] (row-major,
 // contiguous).  `sms` is the card's SM count, which the caller looks up once.
+// One launch, which stores every output once.
 int pair_supports(const void* items, const void* valid, void* out, int I, int W, int sms,
                   void* stream) {
+  if (I <= 0) return static_cast<int>(cudaSuccess);
+  PairPlan p;
+  cudaError_t err = plan_pair(I, W, sms, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t zeroed =
-      cudaMemsetAsync(out, 0, sizeof(int32_t) * static_cast<size_t>(I) * I, s);
-  if (zeroed != cudaSuccess) return static_cast<int>(zeroed);
-  if (I > 0 && W > 0) {
-    const long long tiles = (I + kTile - 1) / kTile;
-    const long long pairs = tiles * (tiles + 1) / 2;
-    const int want = static_cast<int>((kBlocksPerSm * max(sms, 1) + pairs - 1) / pairs);
-    const int most = (W + kMinChunk - 1) / kMinChunk;
-    const int splits = max(1, min(want, most));
-    const int chunk = (W + splits - 1) / splits;
-    const dim3 grid(static_cast<unsigned>(pairs), (W + chunk - 1) / chunk);
-    pair_support_kernel<<<grid, kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(items), static_cast<const uint32_t*>(valid),
-        static_cast<int32_t*>(out), I, W, chunk);
-  }
+  err = p.threads == kPairWide ? launch_pair<kPairWide>(p, items, valid, out, I, W, s)
+                               : launch_pair<kPairNarrow>(p, items, valid, out, I, W, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// What pair_supports launches for these shapes (I positive), into facts[11]
+// (cluster_facts in occupancy.cuh), without launching.
+int pair_supports_facts(int I, int W, int sms, int* facts) {
+  if (I <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  PairPlan p;
+  cudaError_t err = plan_pair(I, W, sms, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cluster_facts(pair_kernel(p.threads), pair_grid(p), p.threads,
+                                        p.cluster, p.chunk, facts));
 }
 
 // The same on the tensor cores (B7).

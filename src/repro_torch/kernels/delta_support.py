@@ -30,8 +30,6 @@ itemset counts every real row.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import build
@@ -100,14 +98,9 @@ def launch_facts(tx_blocks: torch.Tensor, fi_masks: torch.Tensor) -> dict:
     itemsets a thread, rows a block and a staged tile, resident blocks an
     SM, and the kernel's registers and spilled (local) bytes a thread."""
     (S, T, IW), F = tx_blocks.shape, fi_masks.shape[0]
-    facts = (ctypes.c_int * len(_FACTS))()
-    with torch.cuda.device(tx_blocks.device):
-        status = build.library().block_itemset_supports_facts(
-            tx_blocks.data_ptr(), S, T, F, IW, _sm_count(tx_blocks.device.index),
-            ctypes.addressof(facts),
-        )
-    build.check(status, "block_itemset_supports_facts")
-    return dict(zip(_FACTS, facts))
+    return build.launch_facts("block_itemset_supports_facts", _FACTS, tx_blocks.device,
+                              tx_blocks.data_ptr(), S, T, F, IW,
+                              _sm_count(tx_blocks.device.index))
 
 
 _FACTS = ("grid_x", "threads", "word_form", "sets_per_thread", "rows_per_block", "row_tile",

@@ -42,7 +42,6 @@ design and bound are in the source's note.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
@@ -164,45 +163,27 @@ def multi_extension_supports_mxu_cuda(
 def launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
     """How B1 is launched for these operands (CUDA tensors, no launch made):
     its grid, cluster size, resident blocks an SM and clusters at once,
-    waves, and the kernel's registers and spilled (local) bytes a thread."""
+    waves, and the kernel's registers and spilled (local) bytes a thread
+    (``build.CLUSTER_FACTS``)."""
     _check_inputs("launch_facts", item_bits, prefix_tids, MAX_K, MAX_I)
     K, (I, W) = prefix_tids.shape[0], item_bits.shape
-    facts = (ctypes.c_int * len(_FACTS))()
-    with torch.cuda.device(item_bits.device):
-        status = build.library().multi_extension_supports_facts(
-            K, I, W, _sm_count(item_bits.device.index), ctypes.addressof(facts),
-        )
-    build.check(status, "multi_extension_supports_facts")
-    return dict(zip(_FACTS, facts))
-
-
-_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "cluster", "chunk_words", "blocks_per_sm",
-          "clusters_resident", "waves", "registers", "local_bytes")
+    dev = item_bits.device
+    return build.launch_facts("multi_extension_supports_facts", build.CLUSTER_FACTS, dev,
+                              K, I, W, _sm_count(dev.index))
 
 
 def mxu_launch_facts(item_bits: torch.Tensor, prefix_tids: torch.Tensor) -> dict:
     """How B2 is launched for these operands (CUDA tensors, no launch made):
     its grid (W chunks, prefix tiles of 16, item tiles of 32), chunk words,
     shared bytes, resident blocks an SM, waves, and the kernel's registers
-    and spilled (local) bytes a thread.  K, I and W must be positive."""
+    and spilled (local) bytes a thread (``build.GRID_FACTS``).  K, I and W
+    must be positive."""
     _check_inputs("mxu_launch_facts", item_bits, prefix_tids, MXU_MAX_K, MXU_MAX_I)
     K, (I, W) = prefix_tids.shape[0], item_bits.shape
-    return mxu_facts("multi_extension_supports_mxu_facts", item_bits.device, K, I, W)
+    dev = item_bits.device
+    return build.launch_facts("multi_extension_supports_mxu_facts", build.GRID_FACTS, dev,
+                              K, I, W, _sm_count(dev.index))
 
-
-def mxu_facts(name: str, device: torch.device, *shape: int) -> dict:
-    """The launch facts that the C entry point ``name`` reports for ``shape``
-    on ``device`` (B2's and B7's share one layout, ``MXU_FACTS``)."""
-    facts = (ctypes.c_int * len(MXU_FACTS))()
-    with torch.cuda.device(device):
-        status = getattr(build.library(), name)(
-            *shape, _sm_count(device.index), ctypes.addressof(facts))
-    build.check(status, name)
-    return dict(zip(MXU_FACTS, facts))
-
-
-MXU_FACTS = ("grid_x", "grid_y", "grid_z", "threads", "chunk_words", "smem_bytes", "blocks_per_sm",
-             "waves", "registers", "local_bytes")
 
 multi_extension_supports_cuda.launches = 0
 multi_extension_supports_mxu_cuda.launches = 0

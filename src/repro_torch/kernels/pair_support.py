@@ -14,15 +14,20 @@ DB-Repl-Min profit matrix of ``fimi.run(scheduler="repl_min")``
 sample's words); B7 is ``ops.pair_supports``'s default, which the profiled
 demo runs on the whole database (I=100, W=15625).
 
-On the card both are bound by operations, not bytes: B6 by the POPC pipe
-(16 per clock per SM), B7 by the tensor cores, whose dense int8 rate prices
-its 1-bit MMA.  The designs (``csrc/pair_support.cu``): B6 is B1's register
-tiling with both operands the masked item rows, an 8 × 8 tile of counters
-per thread; B7 is B2's staged 1-bit MMA ``m16n8k256 .and.popc`` on 32 × 32
-tiles.  S is symmetric, so both launch only the tile pairs of one triangle
-and store each off-diagonal count twice; W is split over blocks and integer
-atomics add the partial counts, exact in any order.  The TPU's MXU kernel
-sums in f32, exact below 2^24; B7 sums in int32, exact to the int32 range.
+On the card B6 is bound by the POPC pipe (16 per clock per SM); B7's 1-bit
+MMAs, at the rate ``chip_smoke.py`` measures, take less time than its bytes,
+so the bytes bound B7.  The designs
+(``csrc/pair_support.cu``): B6 is B1's register tiling with both operands
+the masked item rows, an 8 × 8 tile of counters per thread; B7 is B2's
+staged 1-bit MMA ``m16n8k256 .and.popc`` on 32 × 32 tiles.  S is symmetric,
+so both launch only the tile pairs of one triangle and store each
+off-diagonal count twice.  B6 is one launch that stores each output once: a
+tile pair's W chunks form a thread-block cluster, sized so that every
+cluster is resident at once, whose first block adds the chunks' counts
+through distributed shared memory.  B7 splits W over blocks whose integer
+atomics add the partial counts into a zeroed output, exact in any order.  The
+TPU's MXU kernel sums in f32, exact below 2^24; B7 sums in int32, exact to
+the int32 range.
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.bitmap_support import popcount
-from repro_torch.kernels.multi_support import MAX_W, _sm_count, mxu_facts, unpack_bits
+from repro_torch.kernels.multi_support import MAX_W, _sm_count, unpack_bits
 
 # the number of tile pairs, ⌈I/8⌉·(⌈I/8⌉+1)/2, must fit grid.x
 MAX_I = 1 << 18
@@ -118,14 +123,30 @@ def pair_supports_mxu_cuda(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> 
     return out
 
 
+def launch_facts(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> dict:
+    """How B6 is launched for these operands (CUDA tensors, no launch made):
+    its grid (tile pairs × cluster), threads, cluster size, chunk words,
+    resident blocks an SM and clusters at once, waves, and the kernel's
+    registers and spilled (local) bytes a thread (``build.CLUSTER_FACTS``).
+    I must be positive."""
+    _check_inputs("launch_facts", item_bits, valid_tid)
+    I, W = item_bits.shape
+    dev = item_bits.device
+    return build.launch_facts("pair_supports_facts", build.CLUSTER_FACTS, dev, I, W,
+                              _sm_count(dev.index))
+
+
 def mxu_launch_facts(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> dict:
     """How B7 is launched for these operands (CUDA tensors, no launch made):
     its grid (pairs of 32-row tiles, W chunks), chunk words, shared bytes,
     resident blocks an SM, waves, and the kernel's registers and spilled
-    (local) bytes a thread.  I and W must be positive."""
+    (local) bytes a thread (``build.GRID_FACTS``).  I and W must be
+    positive."""
     _check_inputs("mxu_launch_facts", item_bits, valid_tid)
     I, W = item_bits.shape
-    return mxu_facts("pair_supports_mxu_facts", item_bits.device, I, W)
+    dev = item_bits.device
+    return build.launch_facts("pair_supports_mxu_facts", build.GRID_FACTS, dev, I, W,
+                              _sm_count(dev.index))
 
 
 pair_supports_cuda.launches = 0

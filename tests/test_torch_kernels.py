@@ -189,6 +189,23 @@ def test_launch_facts_refuse_cpu_tensors():
         ps.mxu_launch_facts(items, tids[0])
 
 
+@pytest.mark.parametrize("kernel", ["extension_supports", "pair_supports"])
+def test_b3_b6_launch_facts_refuse_cpu_tensors(kernel, monkeypatch):
+    """B3's and B6's launch facts describe a launch on the card: CPU
+    tensors are refused before the library is asked."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import pair_support as ps
+
+    def no_library():
+        raise AssertionError("the library was asked")
+
+    monkeypatch.setattr(build, "library", no_library)
+    facts = bs.launch_facts if kernel == "extension_supports" else ps.launch_facts
+    items, tid = bm.from_reference(_words((9, 5), 5)), bm.from_reference(_words((5,), 6))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        facts(items, tid)
+
+
 def test_every_c_entry_point_has_a_signature():
     """``build.SIGNATURES`` names exactly the C entry points of the sources
     (each ``int name(`` inside their ``extern "C"`` blocks), so that every

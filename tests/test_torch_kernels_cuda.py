@@ -46,6 +46,14 @@ SINGLE_SHAPES = [
     (7, 2), (16, 1), (33, 9), (130, 33), (53, 300),
     (100, 64), (100, 15625), (1, 1), (257, 4097), (0, 9), (9, 0),
 ]
+# B3's and B6's edges: I around B3's row groups (4 rows, then 1 and 2) and
+# B6's tiles of 8, W on both sides of each launch-shape and cluster threshold
+# (B3: 64 and 8192 words and chunks of 1024; B6: 512 words and clusters from
+# 1024, of 8 from 4096)
+EDGE_I = (1, 7, 8, 9, 17, 100, 131)
+B3_EDGE_W = (1, 63, 64, 65, 255, 256, 1023, 1024, 1025, 8191, 8192, 8193, 15625, 16385)
+B6_EDGE_W = (1, 64, 255, 256, 511, 512, 513, 1023, 1024, 1025, 4095, 4096, 4097, 15625)
+SINGLE_SHAPES += [(i, w) for i in EDGE_I for w in B3_EDGE_W]
 
 
 def _words(shape, seed):
@@ -350,6 +358,7 @@ PAIR_SHAPES = [(i, w) for i in (1, 7, 8, 17, 33, 100, 131) for w in (1, 2, 33, 1
 B7_RAGGED = [(i, w) for i in (1, 7, 8, 9, 100, 127, 128, 129, 131, 300)
              for w in (1, 7, 8, 9, 118, 119, 15625, 16384)]
 PAIR_SHAPES += B7_RAGGED
+PAIR_SHAPES += [(i, w) for i in EDGE_I for w in B6_EDGE_W]
 
 
 def _valid(w, seed):
@@ -432,6 +441,92 @@ def test_pair_supports_on_the_card_never_reaches_a_plain_version(cuda, monkeypat
     assert torch.equal(got, want)
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k == name) for k in after}
+
+
+def _single_into(out, items, tid):
+    """B3 through its C entry point, on the current stream, into ``out``."""
+    from repro_torch.kernels import build
+
+    I, W = items.shape
+    build.check(build.library().extension_supports(
+        items.data_ptr(), tid.data_ptr(), out.data_ptr(), I, W,
+        torch.cuda.current_stream().cuda_stream), "extension_supports")
+    return out
+
+
+def _pair_into(out, items, valid):
+    """B6 through its C entry point, on the current stream, into ``out``."""
+    from repro_torch.kernels import build
+
+    I, W = items.shape
+    build.check(build.library().pair_supports(
+        items.data_ptr(), valid.data_ptr(), out.data_ptr(), I, W,
+        ms._sm_count(items.device.index), torch.cuda.current_stream().cuda_stream),
+        "pair_supports")
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["b3", "b6"])
+@pytest.mark.parametrize("i", EDGE_I)
+def test_b3_b6_store_every_output(cuda, kernel, i):
+    """Every output is stored, once, with no zeroing launch: each C entry
+    point writes into an output pre-filled with 0x7fffffff the plain
+    version's counts, diagonal and ragged edges included."""
+    for w in (B3_EDGE_W if kernel == "b3" else B6_EDGE_W):
+        items = bm.from_reference(_words((i, w), seed=7 * i + w)).to(cuda)
+        mask = bm.from_reference(_words((w,), seed=w + 3) if kernel == "b3"
+                                 else _valid(w, seed=w + 3)).to(cuda)
+        shape = (i,) if kernel == "b3" else (i, i)
+        out = torch.full(shape, 0x7FFFFFFF, dtype=torch.int32, device=cuda)
+        if kernel == "b3":
+            got, want = _single_into(out, items, mask), bs.extension_supports_plain(items, mask)
+        else:
+            got, want = _pair_into(out, items, mask), ps.pair_supports_plain(items, mask)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (kernel, i, w)
+
+
+@pytest.mark.parametrize("kernel", ["b3", "b6"])
+def test_b3_b6_repeat_and_two_streams(cuda, kernel):
+    """Nothing carries over from one launch to the next: two calls in a row,
+    and calls on two streams at once, give the same counts."""
+    shapes = [(100, 64), (100, 15625), (131, 8193)] if kernel == "b3" else \
+        [(100, 64), (100, 15625), (131, 4097)]
+    fn = bs.extension_supports_cuda if kernel == "b3" else ps.pair_supports_cuda
+    plain = bs.extension_supports_plain if kernel == "b3" else ps.pair_supports_plain
+    for i, w in shapes:
+        ops_ = [(bm.from_reference(_words((i, w), seed=i + w + s)).to(cuda),
+                 bm.from_reference(_valid(w, seed=w + s)).to(cuda)) for s in (0, 1)]
+        want = [plain(*args) for args in ops_]
+        assert torch.equal(fn(*ops_[0]), want[0]) and torch.equal(fn(*ops_[0]), want[0])
+        streams = [torch.cuda.Stream() for _ in ops_]
+        torch.cuda.synchronize()
+        got = []
+        for stream, args in zip(streams, ops_):
+            with torch.cuda.stream(stream):
+                got.append([fn(*args) for _ in range(4)])
+        torch.cuda.synchronize()
+        for outs, w_ in zip(got, want):
+            assert all(torch.equal(o, w_) for o in outs), (kernel, i, w)
+
+
+def test_b3_b6_launch_facts(cuda):
+    """B3 and B6 at their path shapes and at the demo's width: one wave, no
+    spilled registers, and a grid that covers every row group or tile pair
+    in its clusters."""
+    for i, w in [(100, 64), (100, 15625), (1, 1)] + [(i, 8192) for i in EDGE_I]:
+        items = torch.zeros((i, w), dtype=torch.int32, device=cuda)
+        mask = torch.zeros((w,), dtype=torch.int32, device=cuda)
+        for facts, units in ((bs.launch_facts(items, mask), None),
+                             (ps.launch_facts(items, mask), -(-i // 8) * (-(-i // 8) + 1) // 2)):
+            assert facts["waves"] == 1 and facts["local_bytes"] == 0, (i, w, facts)
+            assert 1 <= facts["cluster"] <= 8 and facts["grid_x"] % facts["cluster"] == 0
+            assert facts["cluster"] * facts["chunk_words"] >= w
+            if units is not None:
+                assert facts["grid_x"] == units * facts["cluster"]
+    with pytest.raises(RuntimeError):  # no launch has an empty axis
+        bs.launch_facts(torch.zeros((0, 8), dtype=torch.int32, device=cuda),
+                        torch.zeros((8,), dtype=torch.int32, device=cuda))
 
 
 def test_repl_min_profit_matrix_runs_b6(cuda):
