@@ -40,6 +40,17 @@ prints one JSON object on a line of its own:
            B6, equal to the CPU's on the run's own tidlists and timed on
            them), equals the port's own CPU run on a 20k-row database, and
            equals brute force on T1I0.032P20PL6TL10 at 0.08;
+  variants the launcher's path with the thesis' other Phase-1 methods,
+           ``--variant seq`` (Method 1: one miner mines D̃'s MFI candidates
+           on B3, one launch a DFS node) and ``--variant par`` (Method 2:
+           each miner its classes' candidates), on the thesis database at
+           0.2, P=4, K=16: the FITable of ``exact``, B3 and B1 the only
+           kernels launched, B3 at least once a Phase-1 trip; the Phase-1
+           trips, MFI candidates kept and dropped (reported, not failed on:
+           the reference's buffer drops the same ones), |M|, the plan, the
+           trip shares and ``fimi/load/estimation_error``, phase seconds,
+           wall, peak memory; for ``seq`` the card's candidate buffer equal,
+           trip for trip, to the CPU's (plain B3) on the same sample rows;
   cluster  the cluster launcher's path (planner, rounds, rebalancing) on the
            thesis database at P=4, K=16: the same FITable as ``main``;
   cluster_mxu  the same with ``ClusterParams(use_mxu=True)`` at K=64: Phase 4
@@ -1055,6 +1066,91 @@ def phase_exact(torch, dev, sms, dense, n_fis, mid_db, small_db):
     return want, mid, repl_launches, repl_timing
 
 
+def phase_variants(torch, dev, dense, want, smi, b3_ms):
+    """``mine --variant seq`` and ``--variant par`` once each on the thesis
+    database, with the launch counts of exactly that run; the seq run's MFI
+    mine repeated on the CPU on the same sample rows (plain B3) must give
+    the same candidate buffer.  ``b3_ms`` is B3's time a launch at the
+    sample's shape (``kernels``), to set the Phase-1 host time a trip beside
+    B3's device time."""
+    from repro_torch.core import bitmap as bm
+    from repro_torch.core import mfi
+    from repro_torch.launch import mine
+    from repro_torch.obs import metrics as obs_metrics
+
+    on_path = mfi.mine_all_candidates
+    launches_by = {}
+    for variant in ("seq", "par"):
+        mined = []
+
+        def recording(db, min_support, **kw):
+            out = on_path(db, min_support, **kw)
+            mined.append((db, min_support, kw, out))
+            return out
+
+        print(f"variants: {THESIS_DB} sup={SUPPORT} P=4 K=16 variant={variant}", flush=True)
+        mfi.mine_all_candidates = recording
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            res, wall_s = mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16, device=dev,
+                                          materialize=True, variant=variant)
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            mfi.mine_all_candidates = on_path
+        mine.report(res, wall_s)
+        if res.launches != launches:
+            fail(f"{variant}: the run counted {res.launches} launches, its wrappers {launches}")
+        others = {k: n for k, n in launches.items()
+                  if k not in ("multi_extension_supports", "extension_supports")}
+        trips1 = int(res.phase1_iters.sum())
+        if any(others.values()) or launches["multi_extension_supports"] <= 0 \
+                or launches["extension_supports"] < trips1 or trips1 <= 0:
+            fail(f"{variant}: not B3 (once a Phase-1 trip, {trips1}) and B1 alone: {launches}")
+        if res.n_fis <= 0 or res.exchange_overflow or res.phase4_overflow.any():
+            fail(f"{variant}: Phase 3 or 4 overflowed, or nothing was found")
+        if len(res.fi_dict) != res.n_fis or res.fi_dict != want:
+            fail(f"{variant}: the FITable ({res.n_fis}) differs from exact's ({len(want)})")
+        if res.n_mfi <= 0:
+            fail(f"{variant}: no MFI candidate to sample from")
+        cpu = None
+        if variant == "seq":
+            if len(mined) != 1:
+                fail(f"seq: {len(mined)} MFI mines, not one")
+            db, min_support, kw, got = mined[0]
+            t0 = time.perf_counter()
+            ref = on_path(bm.BitmapDB(db.item_bits.cpu(), db.tx_bits.cpu(), db.n_tx, db.n_items),
+                          min_support, **kw)
+            cpu_s = time.perf_counter() - t0
+            if (got.n_out, got.overflow, got.n_iters) != (ref.n_out, ref.overflow, ref.n_iters) \
+                    or not torch.equal(got.items.cpu(), ref.items) \
+                    or not torch.equal(got.supports.cpu(), ref.supports):
+                fail(f"seq: the card's MFI buffer ({got.n_out}, {got.overflow}, {got.n_iters}) "
+                     f"differs from the CPU's ({ref.n_out}, {ref.overflow}, {ref.n_iters})")
+            cpu = {"equal": True, "n_tx": db.n_tx, "min_support": min_support,
+                   "n_out": ref.n_out, "overflow": ref.overflow, "trips": ref.n_iters,
+                   "cpu_s": cpu_s}
+        trips4 = res.work_iters.astype(np.float64)
+        phase1_s = res.phase_s["phase1"]
+        emit({"phase": "variants", "variant": variant, "nvidia_smi": smi, "db": THESIS_DB,
+              "support": SUPPORT, "P": 4, "K": 16, "n_fis": res.n_fis, "equals_exact": True,
+              "phase1_trips": res.phase1_iters.tolist(), "mfi_kept": res.mfi_count.tolist(),
+              "mfi_dropped": res.phase1_overflow.tolist(), "n_mfi": res.n_mfi,
+              "classes": len(res.classes), "replication": res.replication,
+              "est_loads": res.est_loads.tolist(), "phase4_trips": res.work_iters.tolist(),
+              "obs_trip_shares": (trips4 / max(trips4.sum(), 1)).tolist(),
+              "estimation_error": obs_metrics.registry().gauge(
+                  "fimi/load/estimation_error").value,
+              "phase_s": res.phase_s, "wall_s": wall_s, "peak_mem_bytes": peak,
+              "phase1_s_per_trip": phase1_s / trips1,
+              "b3_device_s": launches["extension_supports"] * b3_ms / 1e3,
+              "launches": launches, "cpu_mfi": cpu})
+        launches_by[variant] = launches["extension_supports"]
+    return launches_by
+
+
 def phase_profile_demo(torch, dev, dense, n_fis):
     """The profiled demo mine once on the thesis database at 0.2, P=4, with a
     run record (``--trace --profile``), with the launch counts of exactly that
@@ -1302,6 +1398,9 @@ def main() -> None:
     want, mid, repl_launches, repl_timing = phase_exact(torch, dev, sms, dense, res.n_fis,
                                                         MID_DB, SMALL_DB)
     launches["pair_supports"] = repl_launches["pair_supports"]
+    b3_main = next(t for t in timings if t["name"] == "extension_supports"
+                   and tuple(t["shape"].values()) == KERNELS[t["name"]]["main_shape"])
+    b3_variants = phase_variants(torch, dev, dense, want, smi, b3_main["ms"])
     demo_launches = phase_profile_demo(torch, dev, dense, res.n_fis)
     launches["pair_supports_mxu"] = demo_launches["pair_supports_mxu"]
     phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=False)
@@ -1345,6 +1444,8 @@ def main() -> None:
                             "replaces": k["replaces"], "launches": launches[t["name"]],
                             **{key: t[key] for key in keys + ("at_demo_shape",)
                                if key in t}})
+            if t["name"] == "extension_supports":  # B3 on main, and on the MFI paths
+                summary[-1]["launches_variants"] = b3_variants
     emit({"kernels": summary, "launch_floor_ms": launch_floor_ms})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(smi, flush=True)

@@ -13,9 +13,10 @@ Words are held as ``torch.int32`` with the bits of the reference's
 right shift here is masked or works on a non-negative value.  The CUDA
 kernels read the same memory as ``uint32``.
 
-Support of an itemset U is ``popcount(AND_{i in U} item_bits[i])``; the two
-support sweeps go through :mod:`repro_torch.kernels.ops`, which launches the
-hand-written kernels on CUDA tensors.
+Support of an itemset U is ``popcount(AND_{i in U} item_bits[i])``; the
+support sweeps (single-prefix, multi-prefix, all pairs) go through
+:mod:`repro_torch.kernels.ops`, which launches the hand-written kernels on
+CUDA tensors.
 """
 from __future__ import annotations
 
@@ -151,6 +152,16 @@ def tidlist_of_itemset(db: BitmapDB, itemset_mask: torch.Tensor) -> torch.Tensor
     return and_reduce(rows, 0) & db.all_tids()
 
 
+def support_of_tidlist(tid: torch.Tensor) -> torch.Tensor:
+    """Support (int32 scalar): the popcount of a tidlist bitmap."""
+    return popcount(tid).sum(dtype=torch.int32)
+
+
+def support_of_itemset(db: BitmapDB, itemset_mask: torch.Tensor) -> torch.Tensor:
+    """Support (int32 scalar) of an itemset given as a bool mask ``[I]``."""
+    return support_of_tidlist(tidlist_of_itemset(db, itemset_mask))
+
+
 def extension_supports(item_bits: torch.Tensor, prefix_tid: torch.Tensor) -> torch.Tensor:
     """``int32[I]`` supports of ``prefix ∪ {i}`` for every item i (kernel B3)."""
     return ops.extension_supports(item_bits, prefix_tid)
@@ -161,6 +172,17 @@ def multi_extension_supports(
 ) -> torch.Tensor:
     """``int32[K, I]`` supports of ``prefix_k ∪ {i}`` (kernel B1)."""
     return ops.multi_extension_supports(item_bits, prefix_tids)
+
+
+def pair_supports(item_bits: torch.Tensor, valid_tid: torch.Tensor) -> torch.Tensor:
+    """All-pairs supports ``int32[I, I]``: support({i, j}) over the valid
+    transactions, the C2 step of Parallel-Eclat (Alg. 5 line 3; kernel B6)."""
+    return ops.pair_supports(item_bits, valid_tid, use_mxu=False)
+
+
+def itemset_mask_to_packed(mask: torch.Tensor) -> torch.Tensor:
+    """Pack a bool itemset mask ``[..., I]`` into int32 ``[..., n_words(I)]``."""
+    return pack_bool(mask)
 
 
 def is_subset_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

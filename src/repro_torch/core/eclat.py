@@ -223,6 +223,33 @@ def _reservoir_update(
     res_supp[slot] = supports
 
 
+def mine(
+    item_bits: torch.Tensor,      # int32[I, W]
+    prefix_mask: torch.Tensor,    # bool [I]
+    ext_mask: torch.Tensor,       # bool [I]
+    prefix_tid: torch.Tensor,     # int32[W]
+    min_support: int,
+    *,
+    config: EclatConfig,
+    n_items: int,
+    generator: torch.Generator | None = None,
+    reservoir_draws: torch.Tensor | None = None,
+) -> EclatResult:
+    """Single-PBEC wrapper over :func:`mine_seeded`."""
+    return mine_seeded(
+        item_bits,
+        prefix_mask[None, :],
+        ext_mask[None, :],
+        prefix_tid[None, :],
+        torch.ones((1,), dtype=torch.bool, device=item_bits.device),
+        int(min_support),
+        config=config,
+        n_items=n_items,
+        generator=generator,
+        reservoir_draws=reservoir_draws,
+    )
+
+
 def mine_all(
     db: bm.BitmapDB,
     min_support: int,

@@ -1,8 +1,18 @@
-"""Parallel-FIMI entry point, reservoir variant (thesis §8.5, Method 3).
+"""Parallel-FIMI entry point: Methods 1–3 of the thesis (§8.5).
 
 ``run`` executes the four phases over P miners stacked on one device:
 
-  1. all-gathered DB sample, Eclat over it with an in-loop reservoir;
+  1. all-gathered DB sample D̃, then the FI sample F̃s by one of three
+     Phase-1 methods (``FimiParams.variant``):
+       * ``seq`` (Method 1, Parallel-FIMI-Seq, Alg. 12): one miner mines the
+         candidates on MFIs of D̃, keeps the maximal ones (M̃) and
+         coverage-samples them;
+       * ``par`` (Method 2, Parallel-FIMI-Par, Alg. 13): each miner mines the
+         MFI candidates of its 1-prefix classes, and their union M is
+         coverage-sampled;
+       * ``reservoir`` (Method 3, Alg. 14, the default): each miner runs
+         Eclat over its classes with an in-loop reservoir, and the P
+         reservoirs are merged hypergeometrically;
   2. PBEC partition and LPT (or DB-Repl-Min) schedule, on the host;
   3. ``all_to_all`` exchange of the transactions each miner's classes need;
   4. frontier-batched Eclat over each miner's slab, plus the ancestor side
@@ -27,7 +37,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.core import bitmap as bm
-from repro_torch.core import eclat, pbec, phases, sampling, schedule
+from repro_torch.core import eclat, mfi, pbec, phases, sampling, schedule
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import progress as obs_progress
@@ -38,10 +48,11 @@ from repro_torch.obs import trace as obs_trace
 class FimiParams:
     """User-facing knobs (thesis Ch. 8 inputs)."""
 
+    variant: str = "reservoir"          # "seq" | "par" | "reservoir"
     min_support_rel: float = 0.1        # min_support*
     eps_db: float = 0.05                # ε_D̃   (Thm 6.1)
     delta_db: float = 0.1               # δ_D̃
-    eps_fs: float = 0.05                # ε_F̃s  (Thm 6.3)
+    eps_fs: float = 0.05                # ε_F̃s  (Thm 6.2/6.3)
     delta_fs: float = 0.1               # δ_F̃s
     rho: float = 0.01                   # smallest-PBEC relative size
     alpha: float = 0.5                  # Phase-2 granularity
@@ -51,6 +62,12 @@ class FimiParams:
     exchange_capacity: Optional[int] = None  # Phase-3 per-(src,dst) row cap
     max_classes: int = 512
     eclat: eclat.EclatConfig = eclat.EclatConfig(max_out=8192, max_stack=2048)
+    mfi: mfi.MFIConfig = mfi.MFIConfig(max_out=2048, max_stack=2048)
+
+
+# The torch generator stream of the coverage draws (the miners' Phase-1
+# streams are 0..P-1)
+COVERAGE_STREAM = 1 << 16
 
 
 @dataclasses.dataclass
@@ -67,8 +84,11 @@ class FimiResult:
     n_fis: int                          # |F| (classes ∪ frequent ancestors)
     work_iters: np.ndarray              # int [P] — Phase-4 DFS trips per miner
     nodes_popped: np.ndarray            # int [P] — Phase-4 DFS nodes mined
+    variant: str                        # the Phase-1 method
     phase1_iters: np.ndarray            # int [P] — Phase-1 DFS trips per miner
-    phase1_overflow: np.ndarray         # int [P]
+    phase1_overflow: np.ndarray         # int [P] — stack (and MFI output) drops
+    mfi_count: np.ndarray               # int [P] — MFI candidates kept per miner
+    n_mfi: int                          # |M| coverage-sampled (seq: |M̃|)
     phase4_overflow: np.ndarray         # int [P]
     phase_s: Dict[str, float]           # seconds per phase, device-synchronised
     launches: Dict[str, int]            # kernel launches of this run, by kernel
@@ -86,16 +106,23 @@ def run(
     materialize: bool = False,
     sample_idx: Optional[torch.Tensor] = None,
     reservoir_draws: Optional[List[torch.Tensor]] = None,
+    coverage_picks: Optional[torch.Tensor] = None,
+    coverage_bits: Optional[torch.Tensor] = None,
 ) -> FimiResult:
     """Mine ``tx_shards`` through the four phases; ``device`` defaults to CUDA.
 
-    ``seed`` drives the torch generators of Phase 1 and seeds the numpy
-    generator of the reservoir merge with ``seed & 0x7FFFFFFF``, which is
-    what the reference derives from ``jax.random.PRNGKey(seed)``.
-    ``sample_idx`` (int[P, n_per_miner]) and ``reservoir_draws`` (one int
-    tensor per miner, the j of Algorithm R for the t-th FI at index t-1)
-    replace the Phase-1 draws, so a test can replay the reference's plan.
+    ``seed`` drives the torch generators of Phase 1 and of the coverage
+    sampler, and seeds the numpy generator of the reservoir merge with
+    ``seed & 0x7FFFFFFF``, which is what the reference derives from
+    ``jax.random.PRNGKey(seed)``.  ``sample_idx`` (int[P, n_per_miner]),
+    ``reservoir_draws`` (one int tensor per miner, the j of Algorithm R for
+    the t-th FI at index t-1), ``coverage_picks`` (int[N]: the MFI each
+    coverage draw takes) and ``coverage_bits`` (int32[N, IW]: its random
+    words), with N = ``int(1.3·|F̃s|) + 8``, replace the Phase-1 draws, so a
+    test can replay the reference's plan.
     """
+    if params.variant not in ("seq", "par", "reservoir"):
+        raise ValueError(f"unknown variant {params.variant!r}")
     dev = device_mod.resolve(device)
     tr = obs_trace.TRACER
     launched_before = ops.kernel_launches()
@@ -121,33 +148,56 @@ def run(
 
     t0 = time.perf_counter()
     # ---------------- Phase 1 ------------------------------------------------
-    with tr.span("fimi/phase1_sample", P=P, variant="reservoir"):
+    variant_dev = {"seq": "sample", "par": "par", "reservoir": "reservoir"}[params.variant]
+    with tr.span("fimi/phase1_sample", P=P, variant=params.variant):
         out1 = tr.sync(phases.phase1_device(
             tx_shards, params.min_support_rel, coll=coll, n_items=n_items,
-            n_sample_per_proc=per_proc, reservoir_size=n_fs, eclat_cfg=params.eclat,
+            n_sample_per_proc=per_proc,
+            reservoir_size=n_fs if params.variant == "reservoir" else 1,
+            eclat_cfg=params.eclat, mfi_cfg=params.mfi, variant=variant_dev,
             generators=[device_mod.generator(dev, seed, p) for p in range(P)],
             sample_idx=sample_idx, reservoir_draws=reservoir_draws,
         ))
     n_samp = out1.sample_db.shape[0]
     sample_bitdb = bm.rebuild_vertical(out1.sample_db, n_items, n_samp)
+    phase1_iters, phase1_overflow = out1.n_iters.copy(), out1.overflow.copy()
+    mfi_count = out1.mfi_count.copy()
+    IW = bm.n_words(n_items)
+    n_mfi = 0
 
-    rng = np.random.default_rng(seed & 0x7FFFFFFF)
-    f_counts = out1.fi_count
-    X = sampling.merge_reservoirs(rng, f_counts, n_fs)
-    res_items = bm.to_reference(out1.reservoir)           # uint32[P, R, IW]
-    picked = []
-    for i in range(P):
-        avail = int(min(f_counts[i], n_fs))
-        if X[i] == 0 or avail == 0:
-            continue
-        sel = rng.choice(avail, size=int(min(X[i], avail)), replace=False)
-        picked.append(res_items[i][sel])
-    fs_packed = (
-        np.concatenate(picked, axis=0) if picked
-        else np.zeros((0, bm.n_words(n_items)), np.uint32)
-    )
-    sample_masks = bm.unpack_bool(bm.from_reference(fs_packed), n_items).numpy()
-    sample_masks = sample_masks.reshape(-1, n_items)
+    if params.variant == "reservoir":
+        rng = np.random.default_rng(seed & 0x7FFFFFFF)
+        f_counts = out1.fi_count
+        X = sampling.merge_reservoirs(rng, f_counts, n_fs)
+        res_items = out1.reservoir.cpu()
+        picked = []
+        for i in range(P):
+            avail = int(min(f_counts[i], n_fs))
+            if X[i] == 0 or avail == 0:
+                continue
+            sel = rng.choice(avail, size=int(min(X[i], avail)), replace=False)
+            picked.append(res_items[i][torch.from_numpy(sel)])
+        fs_packed = (torch.cat(picked) if picked
+                     else torch.zeros((0, IW), dtype=torch.int32))
+    else:
+        if params.variant == "par":
+            M = torch.cat([out1.mfi_items[p, : int(mfi_count[p])] for p in range(P)])
+        else:  # "seq": miner 1 mines the MFIs of D̃ (Alg. 12)
+            sample_minsup = int(np.ceil(params.min_support_rel * n_samp))
+            r = mfi.mine_all_candidates(sample_bitdb, sample_minsup, config=params.mfi)
+            valid = torch.arange(r.items.shape[0], device=dev) < r.n_out
+            M = r.items[mfi.filter_maximal(r.items, valid)]
+            phase1_iters[0], phase1_overflow[0], mfi_count[0] = r.n_iters, r.overflow, r.n_out
+        n_mfi = int(M.shape[0])
+        # a global pick m ∝ 2^|m|, the thesis' per-processor s_i/s split
+        # (Alg. 13); oversampled, since ∅ and singletons are dropped below
+        fs_packed = _coverage_sample_host(
+            M, n_fs, n_items, device_mod.generator(dev, seed, COVERAGE_STREAM),
+            coverage_picks, coverage_bits,
+        ).cpu()
+    sample_masks = bm.unpack_bool(fs_packed, n_items).numpy().reshape(-1, n_items)
+    # the partitioner needs |W| ≥ 2, as the reservoir stream gives: the
+    # singletons are the class prefixes, which Phase 4's side channel counts
     sample_masks = sample_masks[sample_masks.sum(axis=1) >= 2]
     t0 = lap("phase1", t0)
 
@@ -233,8 +283,11 @@ def run(
         n_fis=n_fis,
         work_iters=work_iters,
         nodes_popped=np.array([r.n_popped for r in out4.results]),
-        phase1_iters=out1.n_iters,
-        phase1_overflow=out1.overflow,
+        variant=params.variant,
+        phase1_iters=phase1_iters,
+        phase1_overflow=phase1_overflow,
+        mfi_count=mfi_count,
+        n_mfi=n_mfi,
         phase4_overflow=np.array([r.stack_overflow for r in out4.results]),
         phase_s=phase_s,
         launches={k: n - launched_before[k] for k, n in ops.kernel_launches().items()},
@@ -273,6 +326,21 @@ def _emit_run_metrics(result: FimiResult, params: FimiParams, P: int) -> None:
         reg.gauge(f"fimi/shard{p}/obs_trips").set(float(trips[p]))
         if trips[p] > 0:
             occ.record(float(popped[p]) / (trips[p] * K))
+
+
+def _coverage_sample_host(
+    M: torch.Tensor, n_fs: int, n_items: int, generator: torch.Generator,
+    picks: Optional[torch.Tensor] = None, bits: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """``int(1.3·n_fs) + 8`` coverage draws from the MFI masks ``M``
+    (int32[|M|, IW]), or none when M is empty."""
+    if len(M) == 0:
+        return torch.zeros((0, bm.n_words(n_items)), dtype=torch.int32, device=M.device)
+    valid = torch.ones((len(M),), dtype=torch.bool, device=M.device)
+    return sampling.modified_coverage_sample(
+        M, valid, int(n_fs * 1.3) + 8, n_items,
+        generator=generator, picks=picks, bits=bits,
+    )
 
 
 def materialize_fis(result: FimiResult, n_items: int, abs_minsup: int) -> Dict:

@@ -101,6 +101,29 @@ def partition(
     return classes
 
 
+def verify_disjoint_cover(
+    classes: Sequence[PBEC], n_items: int, universe_masks: np.ndarray
+) -> Tuple[bool, bool]:
+    """Property check of a class table against ``universe_masks`` (bool
+    [N, I], non-empty itemsets): ``(disjoint, covered)``.
+
+    Disjoint: no itemset lies in two classes.  Covered: each lies in exactly
+    one class, or is a prefix on some class' DFS path (those are counted by
+    Phase 4's prefix side channel, Alg. 19 line 2, not by a class).
+    """
+    counts = np.zeros(len(universe_masks), dtype=np.int64)
+    for c in classes:
+        counts += member_mask(universe_masks, c.prefix, c.ext).astype(np.int64)
+    closure = _prefix_closure([c.seq for c in classes])
+    is_prefix = np.array(
+        [frozenset(np.nonzero(m)[0].tolist()) in closure for m in universe_masks],
+        dtype=bool,
+    )
+    disjoint = bool((counts <= 1).all())
+    covered = bool(((counts == 1) | is_prefix).all())
+    return disjoint, covered
+
+
 def _prefix_closure(seqs):
     """All ancestors along each class' DFS path, as frozensets of items."""
     out = set()

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bitmap as bm
-from repro_torch.core import eclat
+from repro_torch.core import eclat, mfi
 from repro_torch.core.apriori import count_supports
 
 INT32_MAX = torch.iinfo(torch.int32).max
@@ -61,16 +61,19 @@ def seed_tidlists(
 
 
 # ---------------------------------------------------------------------------
-# Phase 1 — sampling (reservoir variant)
+# Phase 1 — sampling
 # ---------------------------------------------------------------------------
 
 
 class Phase1Out(NamedTuple):
     sample_db: torch.Tensor           # int32[n_sample, IW] — D̃, replicated
-    reservoir: torch.Tensor           # int32[P, R, IW] — local reservoirs
+    reservoir: torch.Tensor           # int32[P, R, IW] — local reservoirs (Res.)
     reservoir_supports: torch.Tensor  # int32[P, R]
     fi_count: np.ndarray              # int[P] — f_i, FIs streamed locally
-    overflow: np.ndarray              # int[P] — stack overflow
+    mfi_items: torch.Tensor           # int32[P, Mmax, IW] — M_p (Par variant)
+    mfi_supports: torch.Tensor        # int32[P, Mmax]
+    mfi_count: np.ndarray             # int[P]
+    overflow: np.ndarray              # int[P] — stack (and MFI output) overflow
     n_iters: np.ndarray               # int[P] — DFS trips
 
 
@@ -102,16 +105,20 @@ def phase1_device(
     n_sample_per_proc: int,
     reservoir_size: int,
     eclat_cfg: eclat.EclatConfig,
+    mfi_cfg: mfi.MFIConfig = mfi.MFIConfig(),
+    variant: str = "reservoir",   # "reservoir" | "par" | "sample"
     generators: List[torch.Generator],
     sample_idx: Optional[torch.Tensor] = None,       # int[P, n_sample_per_proc]
     reservoir_draws: Optional[List[torch.Tensor]] = None,  # per miner
 ) -> Phase1Out:
-    """Phase 1, reservoir variant (Alg. 14 lines 1–9).
+    """Device part of Phase 1 (Algs. 12/13/14 lines 1–9).
 
     1. each miner samples ``n_sample_per_proc`` rows of D_p i.i.d.;
     2. all-gather → D̃, the same on every miner;
     3. each miner mines D̃ restricted to its 1-prefix classes, streaming the
-       FIs through its own reservoir.
+       FIs through its own reservoir (``reservoir``) or collecting its MFI
+       candidates M_p (``par``).  ``sample`` (the Seq variant) stops after
+       step 2: miner 1 mines D̃'s MFIs afterwards.
 
     D̃ is the same on every miner, so its vertical form and root supports
     are computed once.
@@ -129,6 +136,25 @@ def phase1_device(
     min_support = int(np.ceil(np.float32(min_support_rel) * np.float32(n_samp)))
 
     dev = tx_shards.device
+    if variant not in ("reservoir", "par", "sample"):
+        raise ValueError(f"unknown phase-1 variant {variant!r}")
+    IW = bm.n_words(n_items)
+    R = max(reservoir_size, 1)
+    zeros = np.zeros(P, dtype=np.int64)
+    no_reservoir = dict(
+        reservoir=torch.zeros((P, R, IW), dtype=torch.int32, device=dev),
+        reservoir_supports=torch.zeros((P, R), dtype=torch.int32, device=dev),
+        fi_count=zeros,
+    )
+    no_mfi = dict(
+        mfi_items=torch.zeros((P, mfi_cfg.max_out, IW), dtype=torch.int32, device=dev),
+        mfi_supports=torch.zeros((P, mfi_cfg.max_out), dtype=torch.int32, device=dev),
+        mfi_count=zeros,
+    )
+    if variant == "sample":
+        return Phase1Out(sample_db=sample_db, **no_reservoir, **no_mfi,
+                         overflow=zeros, n_iters=zeros)
+
     item_bits, valid_tid = vertical_from_slab(
         sample_db, torch.ones((n_samp,), dtype=torch.bool, device=dev), n_items
     )
@@ -144,11 +170,27 @@ def phase1_device(
         prefix, ext, valid = _assigned_item_seeds(order, n_items, p, P)
         valid = valid & (prefix & frequent_item[None, :]).any(dim=-1)
         tid = seed_tidlists(item_bits, prefix, valid_tid)
-        results.append(eclat.mine_seeded(
-            item_bits, prefix, ext, tid, valid, min_support,
-            config=cfg, n_items=n_items, generator=generators[p],
-            reservoir_draws=None if reservoir_draws is None else reservoir_draws[p],
-        ))
+        if variant == "par":
+            supp = torch.where(prefix, root_supp[None, :], 0).sum(dim=-1)
+            results.append(mfi.mine_candidates_seeded(
+                item_bits, prefix, ext, tid, supp, valid, min_support,
+                config=mfi_cfg, n_items=n_items,
+            ))
+        else:
+            results.append(eclat.mine_seeded(
+                item_bits, prefix, ext, tid, valid, min_support,
+                config=cfg, n_items=n_items, generator=generators[p],
+                reservoir_draws=None if reservoir_draws is None else reservoir_draws[p],
+            ))
+    if variant == "par":
+        return Phase1Out(
+            sample_db=sample_db, **no_reservoir,
+            mfi_items=torch.stack([r.items for r in results]),
+            mfi_supports=torch.stack([r.supports for r in results]),
+            mfi_count=np.array([r.n_out for r in results]),
+            overflow=np.array([r.overflow for r in results]),
+            n_iters=np.array([r.n_iters for r in results]),
+        )
     # The stream holds every FI of D̃ with |W| ≥ 2; the singletons are the
     # class prefixes, which Phase 4's side channel handles.
     return Phase1Out(
@@ -156,6 +198,7 @@ def phase1_device(
         reservoir=torch.stack([r.reservoir_items for r in results]),
         reservoir_supports=torch.stack([r.reservoir_supports for r in results]),
         fi_count=np.array([r.n_total for r in results]),
+        **no_mfi,
         overflow=np.array([r.stack_overflow for r in results]),
         n_iters=np.array([r.n_iters for r in results]),
     )

@@ -37,6 +37,20 @@ def loads_of(sizes: Sequence[float], assignment: np.ndarray, P: int) -> np.ndarr
     return loads
 
 
+def lpt_makespan_bound_ok(sizes: Sequence[float], assignment: np.ndarray, P: int) -> bool:
+    """Soundly checkable Graham guarantee: ``makespan ≤ Σ/P + (1 − 1/P)·max``.
+
+    The classic 4/3·OPT bound needs the true OPT; against the computable
+    lower bound max(mean, max) this list-scheduling guarantee is the sound
+    one (it implies ≤ 2·OPT, and LPT is 4/3-optimal per Lemma 8.2)."""
+    sizes = np.asarray(sizes, dtype=np.float64)
+    if len(sizes) == 0:
+        return True
+    loads = loads_of(sizes, assignment, P)
+    bound = sizes.sum() / P + (1.0 - 1.0 / P) * sizes.max()
+    return loads.max() <= bound + 1e-9
+
+
 def makespan_of(sizes: Sequence[float], assignment: np.ndarray, P: int) -> float:
     """Max processor load under an assignment (the schedule's makespan)."""
     return float(loads_of(sizes, assignment, P).max())

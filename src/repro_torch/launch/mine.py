@@ -1,5 +1,7 @@
-"""Parallel-FIMI launcher of the port: mine an IBM-generator database with
-the reservoir variant over P miners on one device.
+"""Parallel-FIMI launcher of the port: mine an IBM-generator database over P
+miners on one device, with the Phase-1 method ``--variant`` names (``seq``,
+``par`` or ``reservoir``, the thesis' Methods 1–3; the default is
+``reservoir``).
 
 Runs on the card unless ``--device cpu`` is given; without CUDA and without
 that flag it raises.  The support sweeps on the card are the hand-written
@@ -11,6 +13,7 @@ profiler's attribution to it, ``--torch-profile DIR`` a ``torch.profiler``
 trace.  Without them nothing is recorded.
 
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 -P 4
+  python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 --variant seq
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 \
       --scheduler repl_min --trace RUN --profile
   python -m repro_torch.launch.mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu
@@ -31,10 +34,10 @@ from repro_torch.obs.session import add_obs_flags, start_session
 
 
 def mine_params(support: float, n_tx: int, frontier: int, scheduler: str = "lpt",
-                alpha: float = 0.5) -> fimi.FimiParams:
+                alpha: float = 0.5, variant: str = "reservoir") -> fimi.FimiParams:
     """The launcher's pipeline settings (the reference launcher's values)."""
     return fimi.FimiParams(
-        min_support_rel=support, alpha=alpha, scheduler=scheduler,
+        variant=variant, min_support_rel=support, alpha=alpha, scheduler=scheduler,
         n_db_sample=min(2048, n_tx), n_fi_sample=1024,
         eclat=eclat.EclatConfig(max_out=1 << 15, max_stack=8192, frontier_size=frontier),
     )
@@ -42,11 +45,12 @@ def mine_params(support: float, n_tx: int, frontier: int, scheduler: str = "lpt"
 
 def mine_dense(dense: np.ndarray, *, support: float, P: int = 4, frontier: int = 16,
                scheduler: str = "lpt", alpha: float = 0.5, seed: int = 0,
-               device: Optional[str] = None, materialize: bool = False):
+               device: Optional[str] = None, materialize: bool = False,
+               variant: str = "reservoir"):
     """Shard, mine and report one dense database; returns ``(result, wall_s)``."""
     dev = device_mod.resolve(device)
     n_tx = dense.shape[0]
-    params = mine_params(support, n_tx, frontier, scheduler, alpha)
+    params = mine_params(support, n_tx, frontier, scheduler, alpha, variant)
     t0 = time.perf_counter()
     res = fimi.run(
         fimi.shard_db(dense, P, dev), dense.shape[1], params,
@@ -66,6 +70,11 @@ def report(res: fimi.FimiResult, wall_s: float) -> None:
     print(f"phase-1 DFS trips per miner: {res.phase1_iters.tolist()}  "
           f"stack overflow: phase1={res.phase1_overflow.tolist()} "
           f"phase4={res.phase4_overflow.tolist()}")
+    if res.variant != "reservoir":
+        print(f"phase 1 ({res.variant}): MFI candidates kept per miner "
+              f"{res.mfi_count.tolist()}, dropped {res.phase1_overflow.tolist()}; "
+              f"|M|={res.n_mfi} coverage-sampled"
+              + (" (maximal)" if res.variant == "seq" else ""))
     if res.progress is not None:
         print(res.progress.line() + "  stragglers="
               + ",".join(f"{s:.2f}" for s in res.progress.stragglers))
@@ -77,6 +86,8 @@ def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--db", default="T2I0.048P50PL10TL16")
     ap.add_argument("--support", type=float, default=0.1)
+    ap.add_argument("--variant", default="reservoir", choices=["seq", "par", "reservoir"],
+                    help="Phase-1 method: the thesis' Methods 1-3")
     ap.add_argument("-P", type=int, default=4)
     ap.add_argument("--frontier", type=int, default=16,
                     help="DFS nodes mined per trip (K)")
@@ -92,12 +103,13 @@ def main(argv: Optional[Sequence[str]] = None):
     t0 = time.perf_counter()
     dense = generate_dense(params_from_name(args.db, seed=args.seed))
     n_tx, n_items = dense.shape
-    print(f"{args.db} |D|={n_tx} |B|={n_items} sup={args.support} P={args.P} "
-          f"frontier={args.frontier} device={dev}  "
+    print(f"{args.db} |D|={n_tx} |B|={n_items} sup={args.support} "
+          f"variant={args.variant} P={args.P} frontier={args.frontier} device={dev}  "
           f"(generated in {time.perf_counter() - t0:.2f}s)")
     res, wall_s = mine_dense(
         dense, support=args.support, P=args.P, frontier=args.frontier,
         scheduler=args.scheduler, alpha=args.alpha, seed=args.seed, device=dev,
+        variant=args.variant,
     )
     report(res, wall_s)
     if obs:

@@ -153,10 +153,11 @@ def run(dense: np.ndarray, args, device) -> ServeRun:
     dev = device_mod.resolve(device)
     n_tx, n_items = dense.shape
     print(f"mine: db={args.db} |D|={n_tx} |B|={n_items} sup={args.support} "
-          f"P={args.P} frontier={args.frontier} device={dev}", flush=True)
+          f"variant={args.variant} P={args.P} frontier={args.frontier} device={dev}",
+          flush=True)
     res, mine_s = mine.mine_dense(dense, support=args.support, P=args.P,
                                   frontier=args.frontier, seed=args.seed,
-                                  device=dev, materialize=True)
+                                  device=dev, materialize=True, variant=args.variant)
     fis = res.fi_dict
     print(f"mine: |F| = {len(fis)} in {mine_s:.2f}s")
 
@@ -218,6 +219,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--db", default="T2I0.048P50PL10TL16")
     ap.add_argument("--support", type=float, default=0.1)
+    ap.add_argument("--variant", default="reservoir", choices=["seq", "par", "reservoir"],
+                    help="Phase-1 method: the thesis' Methods 1-3")
     ap.add_argument("-P", type=int, default=4)
     ap.add_argument("--frontier", type=int, default=16,
                     help="DFS nodes mined per trip (K)")
