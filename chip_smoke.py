@@ -60,6 +60,19 @@ prints one JSON object on a line of its own:
   resume   on T20I0.1P50PL10TL40, a run killed after round 0 and resumed
            from its checkpoint gives the unbroken run's FITable, row for row,
            with B1 and with B2;
+  store    out-of-core mining: the thesis database spilled by the port's
+           ``write_ibm_store`` in 8 blocks of 65,536 rows (8,000,000 packed
+           bytes, 3.8 times the 2-block host budget), mined through
+           ``fimi.run(store, P=4)`` (the double-buffered pinned reader, then
+           B3 and B1) at 0.2, K=16: its FITable equal to the dense in-RAM
+           mine of ``store.to_dense()``, the reader's host high-water within
+           the budget, then ``streamed_itemset_supports`` of the FITable over
+           the store (one B5 launch a block) equal to its supports, B5 timed
+           at S=1, T=65,536 against the store's |F|, and ``mine --dataset
+           examples/retail_tiny.dat --parity`` through the launcher; spill
+           seconds, the assembly's time and bytes a second, the prefetch
+           stall, blocks read, both mines' phase seconds and walls, launches
+           and peak memory;
   serve    the mine-then-serve launcher's path on the thesis database at
            support 0.2 with its defaults (minconf 0.5, 1024 queries, batch
            256): the FITable of ``main``, R rules, QPS, batch latency, cache
@@ -77,9 +90,9 @@ prints one JSON object on a line of its own:
            with a run record (``--trace --profile``): measured time in all five
            dispatch families (B3, B1, B7, B4, B5), B7's output equal to B6's
            plain version, |F| of ``main``, the four phase spans in the trace;
-  profile  the main path, both cluster paths and the serve replay once more
-           under ``torch.profiler``: the card's busy time and share of the
-           wall, and the kernels' share of that.
+  profile  the main path, both cluster paths, the store mine and the serve
+           replay once more under ``torch.profiler``: the card's busy time
+           and share of the wall, and the kernels' share of that.
   launch_facts  how B1, B2, B3, B5, B6 and B7 were launched at each shape
            they were timed at: grid, threads, cluster size (B1, B3, B6),
            chunk, shared bytes, resident blocks an SM, waves, registers and
@@ -123,6 +136,10 @@ THESIS_DB = "T500I0.1P50PL10TL40"
 SUPPORT = 0.2
 MID_DB = "T20I0.1P50PL10TL40"         # 20k rows, 100 items: also mined on the CPU
 SMALL_DB, SMALL_SUPPORT = "T1I0.032P20PL6TL10", 0.08  # small enough for brute force
+# the store phase: the thesis database spilled in blocks of 65,536 rows,
+# streamed from a host budget of 2 blocks
+STORE_BLOCK_TX, STORE_BUDGET_BLOCKS = 65536, 2
+RETAIL_TINY = ROOT / "examples" / "retail_tiny.dat"
 
 # The card's rates (memory, integer and POPC issue, int8 tensor cores) are
 # those of ``repro_torch/obs/machine.py``, the one yardstick the port's
@@ -918,10 +935,11 @@ def phase_stream(torch, dev, sms, thesis_masks):
     return launches, timings
 
 
-def phase_profile(torch, dev, dense, serve_run):
-    """The main path, the cluster path with B1 and with B2, and the serve
-    replay once more under ``torch.profiler``: how much of the wall the card
-    is busy, and with what.  Only the trace's device-side events (kernels,
+def phase_profile(torch, dev, dense, serve_run, store):
+    """The main path, the cluster path with B1 and with B2, the store mine
+    (its copies to the card among the device events) and the serve replay
+    once more under ``torch.profiler``: how much of the wall the card is
+    busy, and with what.  Only the trace's device-side events (kernels,
     copies, sets) are summed: a CPU operator's device time repeats that of
     the kernels it launched.  One stream, so they do not overlap."""
     from torch.profiler import ProfilerActivity, profile
@@ -941,6 +959,7 @@ def phase_profile(torch, dev, dense, serve_run):
         "cluster": lambda: cluster_mine.run_once(dense, 4, cluster_args(THESIS_DB), dev),
         "cluster_mxu": lambda: cluster_mine.run_once(
             dense, 4, cluster_args(THESIS_DB, "--frontier", "64"), dev, use_mxu=True),
+        "store": lambda: mine.mine_store(store, support=SUPPORT, P=4, frontier=16, device=dev),
         "serve": serve_replay,
     }
     symbols = (("multi_extension_supports", "multi_support_kernel"),
@@ -1347,6 +1366,118 @@ def phase_resume(dev, mid_db, mid):
     emit({"phase": "resume", "db": mid_db, "support": SUPPORT, "P": 4, **out})
 
 
+def phase_store(torch, dev, sms, smi, tmp):
+    """The out-of-core path once: spill into ``tmp``, mine from the store with
+    the launch counts of exactly that run, the dense in-RAM mine of the same
+    rows, the FITable's supports re-counted over the store on B5, and the
+    launcher's ``--dataset --parity`` on the FIMI fixture; returns B5's timing
+    at the store's shape, the path's launch counts and the store."""
+    from repro_torch.data import ibm_gen
+    from repro_torch.launch import mine
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.store import (BlockReader, pack_bool_np, streamed_itemset_supports,
+                                   write_ibm_store)
+
+    reg = obs_metrics.registry()
+    t0 = time.perf_counter()
+    store = write_ibm_store(ibm_gen.params_from_name(THESIS_DB, seed=0), f"{tmp}/st",
+                            block_tx=STORE_BLOCK_TX)
+    spill_s = time.perf_counter() - t0
+    reader = BlockReader(store, STORE_BUDGET_BLOCKS, device=dev)
+    if store.total_bytes <= reader.budget_bytes or store.n_blocks < 3:
+        fail(f"store: {store.total_bytes}B in {store.n_blocks} blocks is not out of core "
+             f"for a budget of {reader.budget_bytes}B")
+    print(f"store: {store.n_blocks} blocks x <= {store.block_tx} tx ({store.total_bytes} "
+          f"packed bytes on disk)  host budget = {STORE_BUDGET_BLOCKS} blocks "
+          f"({reader.budget_bytes} bytes)  spilled in {spill_s:.2f}s", flush=True)
+
+    # (a) the store mine: the reader, then B3 and B1
+    stall = reg.histogram("store/prefetch_stall_s")
+    stall0, blocks0 = stall.sum, reg.counter("store/blocks_read").value
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    res, wall_s = mine.mine_store(store, support=SUPPORT, P=4, frontier=16, device=dev,
+                                  materialize=True, reader=reader)
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    stall_s = stall.sum - stall0
+    blocks_read = reg.counter("store/blocks_read").value - blocks0
+    mine.report(res, wall_s)
+    others = {k: n for k, n in launches.items()
+              if k not in ("multi_extension_supports", "extension_supports")}
+    if launches["multi_extension_supports"] <= 0 or launches["extension_supports"] <= 0 \
+            or any(others.values()) or res.launches != launches:
+        fail(f"store: the mine did not launch B1 and B3 alone: {launches}, run {res.launches}")
+    if res.exchange_overflow or res.phase1_overflow.any() or res.phase4_overflow.any() \
+            or len(res.fi_dict) != res.n_fis or res.n_fis <= 0:
+        fail("store: the mine overflowed or found nothing")
+    # (d) the host high-water within the budget
+    if not 0 < reader.peak_host_bytes <= reader.budget_bytes \
+            or reader.staging_bytes > reader.budget_bytes:
+        fail(f"store: host high-water {reader.peak_host_bytes}B (staging "
+             f"{reader.staging_bytes}B) against a budget of {reader.budget_bytes}B")
+    if blocks_read != store.n_blocks or not all(done for *_, done in reader.refills):
+        fail(f"store: {blocks_read} blocks read of {store.n_blocks}, or a staging buffer "
+             f"refilled before its copy completed: {reader.refills}")
+
+    # (b) the dense in-RAM mine of the same rows
+    t0 = time.perf_counter()
+    dense = store.to_dense()
+    to_dense_s = time.perf_counter() - t0
+    ref, dense_wall_s = mine.mine_dense(dense, support=SUPPORT, P=4, frontier=16,
+                                        device=dev, materialize=True)
+    if not mine.parity(res.fi_dict, ref.fi_dict):
+        fail(f"store: the FITable ({len(res.fi_dict)}) differs from the dense mine's "
+             f"({len(ref.fi_dict)})")
+
+    # (c) the FITable's supports re-counted over the store on B5
+    sets = list(res.fi_dict)
+    masks = np.zeros((len(sets), store.n_items), dtype=bool)
+    for r, itemset in enumerate(sets):
+        masks[r, list(itemset)] = True
+    masks_dev = torch.from_numpy(pack_bool_np(masks).view(np.int32)).to(dev)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    supports = streamed_itemset_supports(store, masks_dev)
+    torch.cuda.synchronize()
+    recount_s = time.perf_counter() - t0
+    b5_launches = launch_counts()["block_itemset_supports"]
+    non_empty = sum(1 for n in store.block_sizes if n)
+    if b5_launches != non_empty:
+        fail(f"store: B5 launched {b5_launches} times for {non_empty} non-empty blocks")
+    want = np.array([res.fi_dict[k] for k in sets], dtype=np.int64)
+    if not np.array_equal(supports.cpu().numpy(), want):
+        fail("store: the supports re-counted over the store on B5 differ from the mine's")
+    block0 = torch.from_numpy(store.read_block(0).view(np.int32)).to(dev)[None]
+    b5 = time_block(torch, block0.contiguous(), masks_dev, sms)
+    if b5["max_abs_err"]:
+        fail(f"store: B5 disagrees with its plain version at S1 T{block0.shape[1]}: {b5}")
+
+    # (e) the launcher's --dataset --parity on the FIMI fixture
+    retail = mine.main(["--dataset", str(RETAIL_TINY), "--support", "0.2", "-P", "2",
+                        "--parity", "--store", f"{tmp}/retail", "--device", dev.type])
+    if not retail.fi_dict:
+        fail("store: retail_tiny mined to nothing")
+
+    emit({"phase": "store", "nvidia_smi": smi, "db": THESIS_DB, "seed": 0,
+          "support": SUPPORT, "P": 4, "K": 16, "block_tx": STORE_BLOCK_TX,
+          "blocks": store.block_sizes, "store_bytes": store.total_bytes,
+          "budget_blocks": STORE_BUDGET_BLOCKS, "budget_bytes": reader.budget_bytes,
+          "peak_host_bytes": reader.peak_host_bytes, "staging_bytes": reader.staging_bytes,
+          "spill_s": spill_s, "assemble_s": res.phase_s["assemble_store"],
+          "assemble_bytes_per_s": store.n_tx // 4 * 4 * store.n_words * 4
+          / res.phase_s["assemble_store"],
+          "prefetch_stall_s": stall_s, "blocks_read": blocks_read,
+          "n_fis": res.n_fis, "equals_dense": True, "phase_s": res.phase_s, "wall_s": wall_s,
+          "dense": {"to_dense_s": to_dense_s, "phase_s": ref.phase_s, "wall_s": dense_wall_s,
+                    "n_fis": ref.n_fis},
+          "recount": {"launches": b5_launches, "seconds": recount_s, "equals_mine": True},
+          "retail_tiny": {"n_fis": len(retail.fi_dict), "parity": True},
+          "peak_mem_bytes": peak, "launches": launches, "timed": b5})
+    return b5, {**launches, "block_itemset_supports": b5_launches}, store
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from the root of a checkout")
@@ -1407,13 +1538,15 @@ def main() -> None:
     launches_mxu = phase_cluster(torch, dev, dense, THESIS_DB, want, use_mxu=True)
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
+    store_dir = tempfile.TemporaryDirectory()  # removed when the script ends
+    store_timing, store_launches, store = phase_store(torch, dev, sms, smi, store_dir.name)
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
     launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
     fi = serve_run.fi_index
     launches_stream, stream_timings = phase_stream(torch, dev, sms, fi.masks[: fi.n_fis])
     stream_timing = stream_timings[1]
     launches["block_itemset_supports"] = launches_stream["block_itemset_supports"]
-    phase_profile(torch, dev, dense, serve_run)
+    phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty
     # kernel at the same launch beside each
@@ -1426,7 +1559,8 @@ def main() -> None:
     emit({"phase": "launch_facts", "nvidia_smi": smi, "launch_floor_ms": launch_floor_ms,
           "shapes": [{"name": t["name"], "shape": t["shape"], **t["launch"],
                       **({"empty_ms": t["empty_ms"]} if "empty_ms" in t else {})}
-                     for t in timings + [repl_timing] + stream_timings if t.get("launch")]})
+                     for t in timings + [repl_timing] + stream_timings + [store_timing]
+                     if t.get("launch")]})
 
     # each kernel at the shape where its path spends its time: B4 at the rules
     # query (F = 2R), B5 at the delta (S = 2) of a thesis-sized index, B6 on
@@ -1446,6 +1580,10 @@ def main() -> None:
                                if key in t}})
             if t["name"] == "extension_supports":  # B3 on main, and on the MFI paths
                 summary[-1]["launches_variants"] = b3_variants
+            summary[-1]["launches_store"] = store_launches[t["name"]]
+            if t["name"] == "block_itemset_supports":  # B5 over the store's blocks
+                summary[-1]["at_store_shape"] = {key: store_timing[key] for key in keys
+                                                 if key in store_timing}
     emit({"kernels": summary, "launch_floor_ms": launch_floor_ms})
     print(f"chip_smoke: total {time.perf_counter() - t_start:.1f}s", file=sys.stderr)
     print(smi, flush=True)

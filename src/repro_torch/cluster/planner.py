@@ -20,6 +20,11 @@ transactions without stretching the makespan past ``makespan_slack``.
 The sample rows and the reservoir draws come from ``torch.Generator``s, or
 from tensors the caller hands in: torch cannot draw JAX's threefry numbers,
 so a test hands in the reference's draws to reproduce its plan.
+
+``plan`` also takes an on-disk :class:`~repro_torch.store.store.TxStore`
+(``P`` required then): the Thm 6.1 sample is gathered off disk at the same
+row indices (``store.reader.sample_rows``), so the plan equals the in-RAM
+path's without the database ever being resident.
 """
 from __future__ import annotations
 
@@ -33,6 +38,8 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.core import bitmap as bm
 from repro_torch.core import eclat, pbec, phases, sampling, schedule
+from repro_torch.store import reader as store_reader
+from repro_torch.store.store import TxStore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,14 +124,15 @@ def plan_from_reference(ref) -> MiningPlan:
 
 
 def plan(
-    tx_shards: torch.Tensor,      # int32[P, T, IW] — horizontal packed shards
-    n_items: int,
+    tx_shards: torch.Tensor | TxStore,  # int32[P, T, IW] shards, or a store
+    n_items: Optional[int],
     params: PlannerParams,
     *,
     seed: int = 0,
     device: str | torch.device | None = None,
     sample_idx: Optional[torch.Tensor] = None,       # int[n_db] rows of D
     reservoir_draws: Optional[torch.Tensor] = None,  # int[≥ FIs streamed]
+    P: Optional[int] = None,
 ) -> MiningPlan:
     """Build the mining plan from a database sample (Phases 1–2).
 
@@ -132,11 +140,21 @@ def plan(
     from ``sample_idx`` (indices into the ``P·T`` rows of ``tx_shards`` in
     shard order); the j of Algorithm R for the t-th FI of the sample's stream
     from another, or from ``reservoir_draws[t - 1]``.  ``device`` defaults
-    to CUDA.
+    to CUDA.  With a :class:`TxStore`, ``P`` is required, ``n_items`` may be
+    None, and the sample rows are gathered off disk at the same indices.
     """
     dev = device_mod.resolve(device)
-    tx_shards = tx_shards.to(dev)
-    P, T, IW = tx_shards.shape
+    store = None
+    if isinstance(tx_shards, TxStore):   # plan off disk
+        store = tx_shards
+        if P is None:
+            raise ValueError("P (shard count) is required when planning a TxStore")
+        if n_items is None:
+            n_items = store.n_items
+        T, IW = store.n_tx // P, store.n_words
+    else:
+        tx_shards = tx_shards.to(dev)
+        P, T, IW = tx_shards.shape
     n_tx = P * T
     abs_minsup = int(np.ceil(params.min_support_rel * n_tx))
 
@@ -144,8 +162,13 @@ def plan(
     n_db = params.n_db_sample or sampling.db_sample_size(params.eps_db, params.delta_db)
     n_db = min(n_db, n_tx)
     g_samp, g_mine = (device_mod.generator(dev, seed, stream) for stream in (0, 1))
-    rows = bm.sample_transactions(tx_shards.reshape(n_tx, IW), n_db,
-                                  generator=g_samp, idx=sample_idx)
+    if store is not None:   # the in-RAM path's draw, the rows off disk
+        sample_idx = bm.sample_indices(n_tx, n_db, generator=g_samp, idx=sample_idx,
+                                       device=dev)
+        rows = store_reader.sample_rows(store, sample_idx, device=dev)
+    else:
+        rows = bm.sample_transactions(tx_shards.reshape(n_tx, IW), n_db,
+                                      generator=g_samp, idx=sample_idx)
     sample_bitdb = bm.rebuild_vertical(rows, n_items, n_db)
     sample_minsup = int(np.ceil(params.min_support_rel * n_db))
     eps_eff = math.sqrt(math.log(2.0 / params.delta_db) / (2.0 * n_db))

@@ -190,6 +190,24 @@ def is_subset_packed(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return ((a & ~b) == 0).all(dim=-1)
 
 
+def sample_indices(
+    n_rows: int,
+    n_sample: int,
+    *,
+    generator: torch.Generator | None = None,
+    idx: torch.Tensor | None = None,
+    device: str | torch.device | None = None,
+) -> torch.Tensor:
+    """Row indices of the Phase-1 DB sample (thesis §6.1): ``n_sample``
+    i.i.d. draws (with replacement) from ``[0, n_rows)`` on ``generator``,
+    or ``idx`` itself (so a test can hand in the reference's draws)."""
+    if idx is None:
+        return torch.randint(0, n_rows, (n_sample,), generator=generator, device=device)
+    if idx.shape != (n_sample,):
+        raise ValueError(f"idx has shape {tuple(idx.shape)}, want ({n_sample},)")
+    return idx
+
+
 def sample_transactions(
     tx_bits: torch.Tensor,
     n_sample: int,
@@ -198,18 +216,9 @@ def sample_transactions(
     idx: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """i.i.d. (with replacement) sample of transaction rows — the Phase-1 DB
-    sample (thesis §6.1).
-
-    Draws the row indices from ``generator``, or takes them from ``idx``
-    (so a test can hand in the reference's draws).
-    """
-    if idx is None:
-        idx = torch.randint(
-            0, tx_bits.shape[0], (n_sample,), generator=generator,
-            device=tx_bits.device,
-        )
-    elif idx.shape != (n_sample,):
-        raise ValueError(f"idx has shape {tuple(idx.shape)}, want ({n_sample},)")
+    sample, at :func:`sample_indices`."""
+    idx = sample_indices(tx_bits.shape[0], n_sample, generator=generator, idx=idx,
+                         device=tx_bits.device)
     return tx_bits[idx.to(tx_bits.device)]
 
 

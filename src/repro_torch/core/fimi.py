@@ -21,6 +21,12 @@
 The sample only steers the partition: Phase 4 always mines the whole
 database, so the FITable is exact for any sample and any seed.
 
+``run`` also mines a :class:`~repro_torch.store.store.TxStore` out of core:
+the shards are assembled on the card block by block through the
+double-buffered :class:`~repro_torch.store.reader.BlockReader` (span
+``fimi/assemble_store``, ``phase_s["assemble_store"]``), and then exactly
+the dense path runs.
+
 Observability as in the reference: a span per phase (``fimi/phase1_sample``,
 ``fimi/phase2_partition``, ``fimi/phase3_exchange``, ``fimi/phase4_mine``)
 that covers the device's time while tracing, a progress estimate around
@@ -42,6 +48,8 @@ from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import progress as obs_progress
 from repro_torch.obs import trace as obs_trace
+from repro_torch.store import reader as store_reader
+from repro_torch.store.store import TxStore
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,8 +105,8 @@ class FimiResult:
 
 
 def run(
-    tx_shards: torch.Tensor,      # int32[P, T, IW]
-    n_items: int,
+    tx_shards: torch.Tensor | TxStore,      # int32[P, T, IW], or a store
+    n_items: Optional[int],
     params: FimiParams,
     *,
     seed: int = 0,
@@ -108,8 +116,19 @@ def run(
     reservoir_draws: Optional[List[torch.Tensor]] = None,
     coverage_picks: Optional[torch.Tensor] = None,
     coverage_bits: Optional[torch.Tensor] = None,
+    P: Optional[int] = None,
+    host_budget_blocks: int = 2,
+    reader: Optional[store_reader.BlockReader] = None,
 ) -> FimiResult:
     """Mine ``tx_shards`` through the four phases; ``device`` defaults to CUDA.
+
+    ``tx_shards`` may be a :class:`TxStore`: then ``P`` is required
+    (``ValueError`` without it), ``n_items`` may be None, and the shards are
+    assembled on the device through ``reader`` (a caller-owned
+    :class:`~repro_torch.store.reader.BlockReader` on this store, whose
+    ``peak_host_bytes`` the caller reads) or a new reader with
+    ``host_budget_blocks``: bit-exact with ``shard_db(store.to_dense(), P)``,
+    so everything after is the in-RAM path's.
 
     ``seed`` drives the torch generators of Phase 1 and of the coverage
     sampler, and seeds the numpy generator of the reservoir merge with
@@ -126,6 +145,20 @@ def run(
     dev = device_mod.resolve(device)
     tr = obs_trace.TRACER
     launched_before = ops.kernel_launches()
+    phase_s: Dict[str, float] = {}
+    if isinstance(tx_shards, TxStore):   # mine out of core
+        if P is None:
+            raise ValueError("P (miner count) is required when mining a TxStore")
+        if n_items is None:
+            n_items = tx_shards.n_items
+        t0 = time.perf_counter()
+        with tr.span("fimi/assemble_store", P=P):
+            tx_shards = tr.sync(store_reader.to_device_shards(
+                tx_shards, P, host_budget_blocks=host_budget_blocks,
+                reader=reader, device=dev,
+            ))
+        device_mod.synchronize(dev)
+        phase_s["assemble_store"] = time.perf_counter() - t0
     tx_shards = tx_shards.to(dev)
     P, T, IW = tx_shards.shape
     coll = phases.LocalCollectives(P)
@@ -138,7 +171,6 @@ def run(
     n_fs = params.n_fi_sample or sampling.reservoir_sample_size(
         params.eps_fs, params.delta_fs, params.rho
     )
-    phase_s: Dict[str, float] = {}
 
     def lap(name: str, t0: float) -> float:
         device_mod.synchronize(dev)

@@ -29,6 +29,14 @@ class IBMParams:
     corruption: float = 0.5
     seed: int = 0
 
+    @property
+    def name(self) -> str:
+        """The thesis-style name of these params (the store's ``source``)."""
+        return (
+            f"T{self.n_tx / 1000:g}I{self.n_items / 1000:g}"
+            f"P{self.n_patterns}PL{self.avg_pattern_len:g}TL{self.avg_tx_len:g}"
+        )
+
 
 _NAME_RE = re.compile(
     r"T(?P<t>[\d.]+)I(?P<i>[\d.]+)P(?P<p>\d+)PL(?P<pl>[\d.]+)TL(?P<tl>[\d.]+)"
@@ -109,6 +117,29 @@ def _emit_transactions(
         if got == 0:  # guarantee non-empty transactions
             dense[t, rng.integers(0, I)] = True
     return dense
+
+
+def generate_blocks(params: IBMParams, block_tx: int):
+    """Yield the database as dense bool blocks ``[≤block_tx, n_items]``.
+
+    Each block's draws (lengths, pattern picks, corruption) happen when the
+    block is emitted, so the host holds one block at a time; the store spill
+    (``repro_torch.store.write_ibm_store``) packs each block as it lands.
+    The reference's draws in the reference's order, so the blocks are
+    bit-equal to its ``generate_blocks``.  With ``block_tx >= n_tx`` the one
+    block is :func:`generate_dense`'s matrix; smaller blocks draw per block,
+    so a blocked database is a dataset of its own, not a re-chunking of the
+    unblocked one.
+    """
+    if block_tx <= 0:
+        raise ValueError(f"block_tx must be positive (got {block_tx})")
+    rng = np.random.default_rng(params.seed)
+    pool = _draw_pattern_pool(rng, params)
+    done = 0
+    while done < params.n_tx:
+        b = min(block_tx, params.n_tx - done)
+        yield _emit_transactions(rng, params, pool, b)
+        done += b
 
 
 def generate_dense(params: IBMParams) -> np.ndarray:

@@ -17,9 +17,16 @@ without that flag it raises), and reports:
     after round R's checkpoint,
   * the kernel launches of the run.
 
+``--store DIR`` / ``--dataset F.dat`` mine out of core, as in the JAX
+launcher: the plan is sampled off disk (``planner.plan`` on the store) and
+the shards are assembled on the card block by block through the
+double-buffered reader (``phase_ms["assemble"]``).
+
   python -m repro_torch.launch.cluster_mine --db T500I0.1P50PL10TL40 --support 0.2 -P 4
   python -m repro_torch.launch.cluster_mine --db T1I0.032P20PL6TL10 --support 0.08 \\
       --device cpu --parity [--checkpoint DIR [--resume | --kill-after-round R]]
+  python -m repro_torch.launch.cluster_mine --dataset examples/retail_tiny.dat \\
+      --support 0.2 -P 2 --parity --device cpu
 """
 from __future__ import annotations
 
@@ -34,7 +41,9 @@ import numpy as np
 from repro_torch import cluster
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
-from repro_torch.data.ibm_gen import generate_dense, params_from_name
+from repro_torch.launch.data_source import resolve_source
+from repro_torch.store.reader import to_device_shards
+from repro_torch.store.store import TxStore
 
 
 def _skew_plan(plan: cluster.MiningPlan) -> cluster.MiningPlan:
@@ -67,27 +76,41 @@ def cluster_params(args, n_tx: int, use_mxu: bool = False) -> cluster.ClusterPar
     )
 
 
-def run_once(dense: np.ndarray, P: int, args, dev, use_mxu: bool = False):
+def run_once(dense: Optional[np.ndarray], P: int, args, dev, use_mxu: bool = False,
+             store: Optional[TxStore] = None):
     """One executor run at P miners; returns ``(result, wall seconds)``.
 
     ``use_mxu`` is ``ClusterParams.use_mxu`` (Phase 4 on kernel B2); the
-    command line has no flag for it, as the JAX launcher has none.
+    command line has no flag for it, as the JAX launcher has none.  With
+    ``store`` set the plan is computed off disk and the shards are
+    assembled block by block through the reader; ``dense`` is used only
+    otherwise.
     """
-    params = cluster_params(args, dense.shape[0], use_mxu)
+    n_tx, n_items = (store.n_tx, store.n_items) if store is not None else dense.shape
+    params = cluster_params(args, n_tx, use_mxu)
     t0 = time.perf_counter()
-    shards = fimi.shard_db(dense, P, dev)
-    plan = None
+    plan, phase_ms = None, {}
+    if store is not None:
+        plan = cluster.plan(store, None, params.planner, seed=args.seed, device=dev, P=P)
+        t1 = time.perf_counter()
+        shards = to_device_shards(store, P, device=dev)
+        device_mod.synchronize(dev)
+        phase_ms = {"plan": (t1 - t0) * 1e3, "assemble": (time.perf_counter() - t1) * 1e3}
+    else:
+        shards = fimi.shard_db(dense, P, dev)
+        if args.force_skew:
+            plan = cluster.plan(shards, n_items, params.planner, seed=args.seed, device=dev)
+            phase_ms = {"plan": (time.perf_counter() - t0) * 1e3}
     if args.force_skew:
-        plan = _skew_plan(cluster.plan(shards, dense.shape[1], params.planner,
-                                       seed=args.seed, device=dev))
-        plan_ms = (time.perf_counter() - t0) * 1e3
+        plan = _skew_plan(plan)
     res = cluster.execute(
-        shards, dense.shape[1], params, seed=args.seed, device=dev, plan=plan,
+        shards, n_items, params, seed=args.seed, device=dev, plan=plan,
         checkpoint_dir=args.checkpoint or None, resume=args.resume,
         round_hook=_kill_hook(args.kill_after_round),
     )
-    if plan is not None:  # planned outside execute: charge it where it ran
-        res.report.phase_ms["plan"] = plan_ms
+    # execute() saw a precomputed plan: charge the planning (and the
+    # block-streamed assembly) where they ran
+    res.report.phase_ms.update(phase_ms)
     device_mod.synchronize(dev)
     return res, time.perf_counter() - t0
 
@@ -148,6 +171,13 @@ def parity(res: cluster.ClusterResult, dense: np.ndarray, args, dev) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--db", default="T2I0.048P50PL10TL16")
+    ap.add_argument("--dataset", default="",
+                    help="mine a FIMI .dat file (ingested into a store)")
+    ap.add_argument("--store", default="",
+                    help="mine out-of-core from this TxStore dir "
+                         "(spilled from --db when empty)")
+    ap.add_argument("--blocktx", type=int, default=256,
+                    help="store block size (rows) when spilling/ingesting")
     ap.add_argument("--support", type=float, default=0.1)
     ap.add_argument("-P", type=int, default=4)
     ap.add_argument("--scheduler", default="auto", choices=["auto", "lpt", "repl_min"])
@@ -182,13 +212,18 @@ def main(argv: Optional[Sequence[str]] = None) -> cluster.ClusterResult:
     dev = device_mod.resolve(args.device)
 
     t0 = time.perf_counter()
-    dense = generate_dense(params_from_name(args.db, seed=args.seed))
-    n_tx, n_items = dense.shape
-    print(f"{args.db} |D|={n_tx} |B|={n_items} sup={args.support} P={args.P} "
+    store, dense, src = resolve_source(args.dataset, args.store, args.db,
+                                       block_tx=args.blocktx, seed=args.seed)
+    n_tx, n_items = (store.n_tx, store.n_items) if store is not None else dense.shape
+    print(f"{src} |D|={n_tx} |B|={n_items} sup={args.support} P={args.P} "
           f"device={dev} rebalance={not args.no_rebalance} scheduler={args.scheduler}  "
-          f"(generated in {time.perf_counter() - t0:.2f}s)", flush=True)
+          f"({'prepared' if store is not None else 'generated'} in "
+          f"{time.perf_counter() - t0:.2f}s)", flush=True)
+    if store is not None:
+        print(f"store: {store.n_blocks} blocks x <= {store.block_tx} tx "
+              f"({store.total_bytes} packed bytes; plan sampled off-disk)", flush=True)
 
-    res, wall = run_once(dense, args.P, args, dev)
+    res, wall = run_once(dense, args.P, args, dev, store=store)
     report(res, wall)
 
     if args.curve:
@@ -196,15 +231,18 @@ def main(argv: Optional[Sequence[str]] = None) -> cluster.ClusterResult:
         base = None
         print("speedup curve (modeled makespan = sum of per-round max trips):")
         for Pc in counts:
-            r, w = run_once(dense, Pc, args, dev)
+            r, w = run_once(dense, Pc, args, dev, store=store)
             mk = r.report.makespan_trips
             base = mk if base is None else base
             print(f"  P={Pc:<3d} makespan={mk:>8.0f} trips  "
                   f"speedup={base / max(mk, 1):.2f}x  wall={w:.2f}s  "
                   f"imbalance={r.report.imbalance:.2f}")
 
-    if args.parity and not parity(res, dense, args, dev):
-        sys.exit(1)
+    if args.parity:
+        if dense is None:
+            dense = store.to_dense()  # O(n_tx) host: the parity reference only
+        if not parity(res, dense, args, dev):
+            sys.exit(1)
     return res
 
 

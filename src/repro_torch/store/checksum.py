@@ -1,8 +1,9 @@
 """CRC32C (Castagnoli) in vectorized numpy — the store's integrity hash.
 
-The port's own copy of the JAX package's ``store/checksum.py``: the cluster
-checkpoint guards its payload with it, so a checkpoint written by either
-package verifies in the other.  The rest of the store is not ported yet.
+The port's own copy of the JAX package's ``store/checksum.py``: the store
+seals every block payload with it and the cluster checkpoint guards its
+payload with it, so a store or a checkpoint written by either package
+verifies in the other.
 
 Every block payload in a ``txstore-v2`` manifest carries a CRC32C; the
 reader verifies it on every disk read, so a single flipped bit anywhere in
@@ -12,19 +13,26 @@ Python loop would cost far more than the <5% checksum budget the IO
 benchmark gates, so this module computes the CRC with O(COL_W + 32·log n)
 **vectorized** numpy passes instead of O(n) interpreted ones:
 
-  1. *Column scan*: reshape the message into ``[k, COL_W]`` chunks and run
-     the byte-at-a-time table recurrence down the columns — one numpy op
-     per byte *position*, parallel across all ``k`` chunks.
+  1. *Column scan*: view the message as ``[k, COL_W]`` chunks and run the
+     byte-at-a-time table recurrence down the columns — one numpy op per
+     byte *position*, parallel across all ``k`` chunks.
   2. *Combine tree*: CRC is linear over GF(2), so
      ``crc(A‖B) = shift_{8·|B|}(crc(A)) ^ crc(B)`` where ``shift_m`` (the
      operator that appends ``m`` zero bytes) is a fixed 32×32 bit matrix.
      Adjacent chunk CRCs are folded pairwise, squaring the shift matrix per
      level — log₂(k) vectorized folds.
 
+The message is cut into pieces of a power of two of chunks (the binary
+digits of its chunk count) plus a tail of under ``COL_W`` bytes, and the
+pieces' CRCs are joined by the same rule.  Each piece is a view of the
+message, so checking a block costs no copy of it: the store's reader
+checks a block in the pinned buffer it was read into, inside its host
+budget.
+
 Init/xorout handling uses the same linearity: seeding the register with
 ``0xFFFFFFFF`` equals XORing ``shift_{8n}(0xFFFFFFFF)`` into the raw
 (zero-seeded) CRC.  Zero-seeded CRCs ignore leading zero bytes
-(``TABLE[0] == 0``), which is what makes the front-padding in step 1 safe.
+(``TABLE[0] == 0``), which is what makes the front-padding of the tail safe.
 
 Verified against the RFC 3720 check value (``crc32c(b"123456789") ==
 0xE3069283``) and the per-byte reference ``crc32c_ref``.
@@ -86,26 +94,46 @@ def _zero_op(n_bytes: int) -> np.ndarray:
     return op
 
 
-def _crc_raw(data: np.ndarray) -> int:
-    """Zero-seeded, zero-xorout CRC32C of a uint8 array (vectorized)."""
-    n = int(data.size)
-    if n == 0:
-        return 0
-    k = -(-n // _COL_W)
-    k = 1 << max(k - 1, 0).bit_length()       # power of two for the fold tree
-    buf = np.zeros(k * _COL_W, np.uint8)
-    buf[-n:] = data                            # front zero-pad: crc-neutral
-    cols = buf.reshape(k, _COL_W)
-    state = np.zeros(k, np.uint32)
+def _crc_chunks(cols: np.ndarray) -> int:
+    """Zero-seeded CRC of ``cols`` (uint8 ``[k, COL_W]``, k a power of two)."""
+    state = np.zeros(cols.shape[0], np.uint32)
     for j in range(_COL_W):                    # parallel across all k chunks
         state = (state >> np.uint32(8)) ^ _TABLE[
             (state ^ cols[:, j]) & np.uint32(0xFF)
         ]
-    op = _zero_op(_COL_W)
+    level = 0
     while state.size > 1:                      # crc(A‖B) = op(crc A) ^ crc B
+        op = _zero_op(_COL_W << level)
         state = _apply_op(op, state[0::2]) ^ state[1::2]
-        op = _compose(op, op)
+        level += 1
     return int(state[0])
+
+
+def _extend(crc: int, n_bytes: int) -> int:
+    """The zero-seeded CRC of a message ``crc`` stands for, followed by
+    ``n_bytes`` zero bytes."""
+    if crc == 0:
+        return 0
+    return int(_apply_op(_zero_op(n_bytes), np.array([crc], np.uint32))[0])
+
+
+def _crc_raw(data: np.ndarray) -> int:
+    """Zero-seeded, zero-xorout CRC32C of a contiguous uint8 array
+    (vectorized, on views of it)."""
+    n = int(data.size)
+    q, r = divmod(n, _COL_W)
+    crc, pos = 0, 0
+    for b in reversed(range(q.bit_length())):  # pieces of 2^b chunks, largest first
+        if q >> b & 1:
+            size = _COL_W << b
+            piece = data[pos:pos + size].reshape(1 << b, _COL_W)
+            crc = _extend(crc, size) ^ _crc_chunks(piece)
+            pos += size
+    if r:
+        tail = np.zeros(_COL_W, np.uint8)
+        tail[_COL_W - r:] = data[pos:]         # front zero-pad: crc-neutral
+        crc = _extend(crc, r) ^ _crc_chunks(tail.reshape(1, _COL_W))
+    return crc
 
 
 def crc32c(data: Union[bytes, bytearray, memoryview, np.ndarray]) -> int:

@@ -13,6 +13,7 @@
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -158,13 +159,18 @@ def test_serving_launchers_raise_without_cuda(launcher, monkeypatch):
     assert module.main(small + ["--device", "cpu"]) is not None
 
 
-def test_launcher_imports_neither_jax_nor_repro():
+def test_launcher_imports_neither_jax_nor_repro(tmp_path):
     code = (
         "import json, runpy, sys\n"
         "sys.argv = ['mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
         " '--support', '0.08']\n"
         "runpy.run_module('repro_torch.launch.mine', run_name='__main__')\n"
+        f"store_dir = {str(tmp_path / 'store')!r}\n"
+        "sys.argv = ['mine', '--device', 'cpu', '--db', 'T0.5I0.024P8PL5TL8', '--support',"
+        " '0.08', '--store', store_dir, '--blocktx', '64', '--parity']\n"
+        "runpy.run_module('repro_torch.launch.mine', run_name='__main__')\n"
         "import repro_torch.cluster, repro_torch.launch.cluster_mine, repro_torch.store.checksum\n"
+        "import repro_torch.store.reader, repro_torch.launch.fsck\n"
         "sys.argv = ['serve_mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
         " '--support', '0.08', '--queries', '300']\n"
         "runpy.run_module('repro_torch.launch.serve_mine', run_name='__main__')\n"
@@ -184,6 +190,9 @@ def test_launcher_imports_neither_jax_nor_repro():
     assert done.returncode == 0, done.stderr
     lines = done.stdout.strip().splitlines()
     assert "|F| = 3370" in done.stdout
+    # the store mine streamed a store larger than its host budget, exactly
+    assert "parity vs dense in-RAM fimi.run: OK (1847 itemsets, bit-exact supports" in done.stdout
+    assert re.search(r"streamed host high-water: (256|512) bytes \(budget 512\)", done.stdout)
     # the CPU run launches no kernel, and the launcher prints its own run's counts
     assert "kernel launches: multi_extension_supports=0 extension_supports=0" in done.stdout
     # serving and streaming ran, on the plain versions
