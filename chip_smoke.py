@@ -90,6 +90,31 @@ prints one JSON object on a line of its own:
            with a run record (``--trace --profile``): measured time in all five
            dispatch families (B3, B1, B7, B4, B5), B7's output equal to B6's
            plain version, |F| of ``main``, the four phase spans in the trace;
+  service  the serving service under open-loop load (``serve_load``'s harness)
+           over the ``serve`` phase's index pair: the micro-batched capacity
+           (``compare_dispatch``), then 2 replicas, batch 64, deadline 4 ms,
+           the cache on, Poisson arrivals (Zipf 1.3, drifting hot set) at half
+           that capacity for 10 s after a 2 s ramp, traced, while a second
+           thread swaps every replica to the stream's last index pair and
+           back (each pair copied on its own CUDA stream): 0 errors, 0
+           unresolved, every answer equal to the CPU engine's at its flush's
+           generation; offered and served QPS, windowed p50/p95/p99, shed
+           rate, burn, flushes, batch fill, replica lanes, queue wait and
+           sweep times from the flush spans, B4's launches, peak memory, the
+           micro-batch speedup.  Then ``serve_load`` at its defaults behind
+           ``--gate`` (exit 0), and an overload at 4 times the capacity into
+           a queue of 64 (exit 1, sheds, an alert in the measured phase),
+           open-loop first and, if that offered too little to shed, with a
+           closed loop of 256 callers beside it;
+  stream_cluster  the ``stream`` phase's path with ``--cluster 4 --spill``:
+           the cluster executor re-mines the window (B1, B3, B6), the window
+           spills its 16 evicted blocks (1,048,576 rows) into a store; the
+           same re-mine log as ``stream``, 0 torn, the delta check equal;
+           the store mined from disk (``fimi.run(store, P=4)``) within the
+           2-block host budget equal to the dense mine of the same 16 blocks
+           as the host generated them for the stream; ingest rows/s beside
+           the ``stream`` phase's, the spill's seconds, the re-mine walls and
+           the launches;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -110,6 +135,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import gc
 import json
 import shutil
 import statistics
@@ -884,14 +910,26 @@ def phase_stream(torch, dev, sms, thesis_masks):
     that run, then B5 timed at the delta's shape, S=2 blocks of the window
     (its two newest), against the last index the stream served and against
     ``thesis_masks``, the thesis database's |F| itemsets: the size of the
-    stream's indexes before the drift, whose deltas take the longest."""
+    stream's indexes before the drift, whose deltas take the longest.  The
+    stream's host blocks are kept, for ``stream_cluster`` to replay."""
     from repro_torch.launch import stream_mine
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    generate, blocks = stream_mine.drifting_stream, []
+
+    def keeping(*a, **kw):
+        for block in generate(*a, **kw):
+            blocks.append(block)
+            yield block
+
+    stream_mine.drifting_stream = keeping
     t0 = time.perf_counter()
-    res = stream_mine.main(STREAM_ARGS + ["--device", dev.type])
+    try:
+        res = stream_mine.main(STREAM_ARGS + ["--device", dev.type])
+    finally:
+        stream_mine.drifting_stream = generate
     wall_s = time.perf_counter() - t0
     launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -932,7 +970,358 @@ def phase_stream(torch, dev, sms, thesis_masks):
           "cache_hit_rate": sm.cache.stats.hit_rate, "torn": res.torn,
           "delta_checks": res.delta_checks, "delta_mismatches": res.delta_mismatches,
           "wall_s": wall_s, "peak_mem_bytes": peak, "launches": launches, "timed": timings})
-    return launches, timings
+    return launches, timings, res, blocks
+
+
+SERVICE_ARGS = ["--replicas", "2", "--batch", "64", "--deadline-ms", "4", "--cache", "2048",
+                "--duration", "10", "--ramp", "2", "--no-dashboard", "--bench-out", ""]
+OVERLOAD_CALLERS = 256     # the closed loop's callers, 4 x --max-queue 64
+
+
+def copy_pair(torch, pair, stream):
+    """An index pair with every tensor copied on ``stream`` (device to
+    device): a standby pair built on another thread's own stream."""
+    import dataclasses
+
+    with torch.cuda.stream(stream):
+        return tuple(dataclasses.replace(x, **{
+            f.name: getattr(x, f.name).clone() for f in dataclasses.fields(x)
+            if isinstance(getattr(x, f.name), torch.Tensor)}) for x in pair)
+
+
+def cpu_answers(pair, asked, batch):
+    """Each distinct (kind, mask bytes) of ``asked`` answered by the engine
+    over ``pair`` on the CPU (B4's plain version)."""
+    from repro_torch.serve import QueryEngine
+
+    eng = QueryEngine(pair[0].to("cpu"), pair[1].to("cpu"), batch=batch, top_k=5)
+    call = {"support": lambda m: list(eng.support(m)),
+            "rules": lambda m: list(zip(*eng.rules_for(m))),
+            "superset": lambda m: list(zip(*eng.supersets(m)))}
+    out = {}
+    for kind in call:
+        keys = sorted({m for k, m in asked if k == kind})
+        for lo in range(0, len(keys), batch):
+            part = keys[lo: lo + batch]
+            masks = np.stack([np.frombuffer(m, np.uint32) for m in part])
+            out.update({(kind, m): v for m, v in zip(part, call[kind](masks))})
+    return out
+
+
+@contextlib.contextmanager
+def gc_account():
+    """The collector's passes and seconds by generation while the block
+    runs: ``{"passes": [n0, n1, n2], "s": [s0, s1, s2]}``."""
+    acc, t0 = {"passes": [0, 0, 0], "s": [0.0, 0.0, 0.0]}, [0.0]
+
+    def on_gc(phase, info):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            acc["s"][info["generation"]] += time.perf_counter() - t0[0]
+            acc["passes"][info["generation"]] += 1
+    gc.callbacks.append(on_gc)
+    try:
+        yield acc
+    finally:
+        gc.callbacks.remove(on_gc)
+
+
+def pctl(values, qs=(50, 95, 99)):
+    v = np.asarray(values, dtype=np.float64)
+    return {f"p{q}": float(np.percentile(v, q)) for q in qs} if v.size else None
+
+
+def loaded_run(torch, dev, dense, serve_run, stream_pair, qps):
+    """One traced ``serve_load`` run of the service over the serve phase's
+    index pair at ``qps``, while a second thread swaps every replica to
+    ``stream_pair`` and back (each pair copied on that thread's own stream),
+    with every answer held against the CPU engine at its flush's generation.
+    Returns what it measured, with the launch counts of exactly that run."""
+    import threading
+
+    from repro_torch.launch import serve_load
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.serve import Failed, Shed
+
+    fi, rl = serve_run.fi_index, serve_run.rule_index
+    thesis = (fi, rl)
+    args = serve_load.build_parser().parse_args(SERVICE_ARGS + ["--qps", str(qps)])
+    asked, swaps, swap_errors = {}, [], []
+
+    def on_start(svc):
+        submit = svc.submit
+
+        def recording(kind, mask):
+            ticket = submit(kind, mask)
+            asked[ticket.id] = (kind, np.ascontiguousarray(mask, np.uint32).tobytes())
+            return ticket
+        svc.submit = recording
+        t0 = time.monotonic()
+
+        def swapper():
+            side = torch.cuda.Stream(dev)
+            try:
+                for k, pair in ((1, stream_pair), (2, thesis)):
+                    standby = copy_pair(torch, pair, side)
+                    time.sleep(max(0.0, t0 + args.ramp + k * args.duration / 3
+                                   - time.monotonic()))
+                    with torch.cuda.stream(side):
+                        swaps.append((svc.swap_indexes(*standby), time.monotonic() - t0))
+            except Exception as e:   # reported below: the phase fails on it
+                swap_errors.append(f"{type(e).__name__}: {e}")
+        threading.Thread(target=swapper, name="swapper", daemon=True).start()
+
+    tr = obs_trace.tracer()
+    tr.clear()
+    tr.set_max_events(8_000_000)
+    obs_metrics.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    heap_objects = len(gc.get_objects())
+    tr.enable()
+    try:
+        with gc_account() as gc_acc:
+            run = serve_load.serve(args, serve_run.fis, dense, fi, rl, on_start=on_start)
+    finally:
+        tr.disable()
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    st = run.svc.stats()
+    events = tr.export()["traceEvents"]
+    dropped = tr.dropped_events
+    tr.clear()
+    tr.set_max_events(obs_trace.DEFAULT_MAX_EVENTS)
+    gen_of = {}
+    for e in events:
+        if e.get("ph") == "X" and e["name"] == "service/flush":
+            for rid in e["args"]["reqs"]:
+                if rid in gen_of:
+                    fail(f"service: request {rid} in two flushes")
+                gen_of[rid] = e["args"]["generation"]
+    values = [(t.id, t.result(0)) for t in run.tickets]
+    failed = [v for _, v in values if isinstance(v, Failed) or v is None]
+    if swap_errors or [g for g, _ in swaps] != [1, 2]:
+        fail(f"service: the swaps from the second thread: {swaps}, {swap_errors}")
+    if st["errors"] or failed or run.unresolved or dropped:
+        fail(f"service: {st['errors']} errors, {len(failed)} failed, {run.unresolved} "
+             f"unresolved tickets, {dropped} trace events dropped")
+    served = [(i, v) for i, v in values if not isinstance(v, Shed)]
+    if set(gen_of) != {i for i, _ in served} or set(gen_of.values()) != {0, 1, 2}:
+        fail(f"service: {len(gen_of)} requests in flushes against {len(served)} served, "
+             f"generations {sorted(set(gen_of.values()))}")
+    if launches["subset_superset_counts"] <= 0 or any(
+            n for k, n in launches.items() if k != "subset_superset_counts"):
+        fail(f"service: B4 must carry every flush and nothing else launch: {launches}")
+    t0 = time.perf_counter()
+    cpu = {g: cpu_answers(pair, asked.values(), args.batch)
+           for g, pair in ((0, thesis), (1, stream_pair))}
+    differ = [i for i, v in served if not same_answer(v, cpu[gen_of[i] % 2][asked[i]])]
+    check_s = time.perf_counter() - t0
+    if differ:
+        fail(f"service: {len(differ)} of {len(served)} answers differ from the CPU engine's "
+             f"at their generation (first {differ[:5]})")
+
+    fin = run.final
+    spans = collections.defaultdict(list)
+    for e in events:
+        if e.get("ph") == "X" and e["name"].startswith("service/"):
+            spans[e["name"]].append(e["dur"] / 1e3)
+    return {
+        "target_qps": qps, "offered": len(run.tickets),
+        "offered_qps": len(run.tickets) / (args.ramp + args.duration),
+        "served": len(served), "served_qps": len(served) / (args.ramp + args.duration),
+        "window_offered_qps": fin.offered_qps, "window_served_qps": fin.qps,
+        "window_ms": {"p50": fin.p50_ms, "p95": fin.p95_ms, "p99": fin.p99_ms},
+        "shed": st["shed"], "shed_rate": fin.shed_rate, "burn_rate": fin.burn_rate,
+        "gate_ok": run.slo_keys["slo_gate_ok"], "alerts": len(run.measure_alerts),
+        "flushes": st["flushes"],
+        "batch_fill": obs_metrics.registry().histogram("service/batch_fill").summary(),
+        "per_replica_flushes": st["per_replica_flushes"],
+        "per_replica_requests": st["per_replica_requests"],
+        "cache_hit_rate": st["cache"]["hit_rate"], "swaps": swaps,
+        "queue_wait_ms": pctl(spans["service/enqueue"]),
+        "sweep_ms": pctl(spans["service/sweep"]), "flush_ms": pctl(spans["service/flush"]),
+        "answers_checked": len(served), "answers_equal_cpu": True, "cpu_check_s": check_s,
+        "heap_tracked_objects": heap_objects, "gc_passes": gc_acc["passes"],
+        "gc_s": gc_acc["s"], "trace_events": len(events),
+        "wall_s": run.wall_s, "peak_mem_bytes": peak, "launches": launches}
+
+
+def phase_service(torch, dev, dense, serve_run, stream_pair, smi, tmp):
+    """The serving service under open-loop load (``serve_load``'s harness)
+    over the serve phase's index pair: the micro-batched capacity
+    (``compare_dispatch``), then 2 replicas at half of it for 10 s after a
+    2 s ramp (``loaded_run``: two swaps from a second thread, every answer
+    checked).  Then the launcher at its defaults behind ``--gate`` (exit 0),
+    and an overload at 4 times the capacity with ``--max-queue 64`` (exit 1,
+    sheds, an alert in the measured phase).  Returns the launch counts of
+    the loaded run."""
+    from repro_torch.launch import serve_load
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.serve import QueryEngine
+
+    fi, rl = serve_run.fi_index, serve_run.rule_index
+    args = serve_load.build_parser().parse_args(SERVICE_ARGS)
+    pools = serve_load.build_pools(np.random.default_rng(args.seed), serve_run.fis, dense,
+                                   fi.n_items, pool=args.pool)
+    capacity = serve_load.compare_dispatch(
+        QueryEngine(fi, rl, batch=args.batch, top_k=args.topk),
+        serve_load.Workload(np.random.default_rng(args.seed), pools, zipf_a=args.zipf,
+                            drift_every=args.drift_every))
+    half = loaded_run(torch, dev, dense, serve_run, stream_pair, capacity["batched_qps"] / 2)
+
+    # the launcher at its defaults, behind its gate; files into a temp directory.
+    # Each run starts from a fresh registry: a service's stats are its own
+    obs_metrics.reset()
+    with contextlib.chdir(tmp):
+        defaults = serve_load.run(["--gate", "--no-dashboard",
+                                   "--bench-out", f"{tmp}/BENCH_torch_serve.json"])
+    dst = defaults.svc.stats()
+    if defaults.rc != 0 or dst["errors"] or defaults.unresolved:
+        fail(f"service: serve_load at its defaults: exit {defaults.rc}, {dst['errors']} "
+             f"errors, {defaults.unresolved} unresolved")
+    defaults_gate = {
+        "rc": defaults.rc, "db": serve_load.build_parser().get_default("db"),
+        "target_qps": defaults.slo_keys["slo_target_qps"],
+        "window_served_qps": defaults.final.qps,
+        "window_ms": {"p50": defaults.final.p50_ms, "p95": defaults.final.p95_ms,
+                      "p99": defaults.final.p99_ms},
+        "shed": dst["shed"], "errors": dst["errors"], "flushes": dst["flushes"]}
+
+    # the overload: 4 times the measured capacity into a 64-deep queue
+    attempts = []
+    for mode in ("open", "closed"):
+        argv = SERVICE_ARGS + ["--qps", str(4 * capacity["batched_qps"]), "--max-queue", "64",
+                               "--gate"]
+        if mode == "closed":
+            argv += ["--closed", str(OVERLOAD_CALLERS)]
+        obs_metrics.reset()
+        with contextlib.chdir(tmp):
+            over = serve_load.serve(serve_load.build_parser().parse_args(argv), serve_run.fis,
+                                    dense, fi, rl)
+        ost = over.svc.stats()
+        attempts.append({
+            "mode": mode, "rc": over.rc, "target_qps": 4 * capacity["batched_qps"],
+            "offered": len(over.tickets), "offered_qps": len(over.tickets) / over.wall_s,
+            "window_served_qps": over.final.qps, "shed": ost["shed"], "errors": ost["errors"],
+            "alerts_all": len(over.slo.alerts), "alerts_measured": len(over.measure_alerts),
+            "alert_kinds": sorted({a["objective"] for a in over.measure_alerts}),
+            "window_p99_ms": over.final.p99_ms,
+            "closed_callers": OVERLOAD_CALLERS if mode == "closed" else 0})
+        if ost["errors"]:
+            fail(f"service: the overload raised {ost['errors']} errors")
+        if over.rc == 1 and ost["shed"] > 0 and over.measure_alerts:
+            break
+    else:
+        fail(f"service: the overload did not trip the gate: {attempts}")
+    emit({"phase": "service", "nvidia_smi": smi, "db": THESIS_DB, "support": SUPPORT,
+          "minconf": 0.5, "n_fis": fi.n_fis, "n_rules": rl.n_rules,
+          "swap_to": {"n_fis": stream_pair[0].n_fis, "n_rules": stream_pair[1].n_rules},
+          "argv": SERVICE_ARGS, "switch_interval_s": sys.getswitchinterval(),
+          "capacity": capacity, "microbatch_speedup": capacity["speedup"],
+          "half_capacity": half, "defaults_gate": defaults_gate,
+          "overload": attempts[-1], "overload_attempts": attempts})
+    return half["launches"]
+
+
+def phase_stream_cluster(torch, dev, stream_res, stream_blocks, smi, tmp):
+    """The streaming launcher with the cluster executor as re-miner
+    (``--cluster 4``) and the window's spill (``--spill``) on the ``stream``
+    phase's blocks, replayed as the host generated them there (the same
+    arguments give the same blocks): the stream phase's re-mine log, 0 torn,
+    16 blocks spilled, then the spilled store mined from disk
+    (``fimi.run(store, P=4)``) equal to the dense mine of those 16 blocks."""
+    from repro_torch.launch import mine, stream_mine
+    from repro_torch.store import BlockReader, TxStore
+    from repro_torch.stream import window as window_mod
+
+    spill_dir = f"{tmp}/spill"
+    spill_s = []
+    append, generate = window_mod.WindowSpill.append, stream_mine.drifting_stream
+    window = int(STREAM_ARGS[STREAM_ARGS.index("--blocks") + 1])
+    n_blocks = int(STREAM_ARGS[STREAM_ARGS.index("--stream") + 1])
+    blocks = [block for block, _ in stream_blocks[: n_blocks - window]]
+
+    def timed_append(self, expired):
+        t0 = time.perf_counter()
+        out = append(self, expired)
+        spill_s.append(time.perf_counter() - t0)
+        return out
+
+    def replaying(*a, **kw):
+        yield from stream_blocks
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    window_mod.WindowSpill.append, stream_mine.drifting_stream = timed_append, replaying
+    t0 = time.perf_counter()
+    try:
+        res = stream_mine.main(STREAM_ARGS + ["--device", dev.type, "--cluster", "4",
+                                              "--spill", spill_dir])
+    finally:
+        window_mod.WindowSpill.append, stream_mine.drifting_stream = append, generate
+    wall_s = time.perf_counter() - t0
+    launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if res is None or res.torn or res.delta_mismatches \
+            or res.delta_checks != n_blocks - window + 1:
+        fail(f"stream_cluster: {res and res.torn} torn, {res and res.delta_mismatches} delta "
+             f"mismatches of {res and res.delta_checks}")
+    log = [(b, seg, why, f) for b, seg, why, _, _, f in res.remine_log]
+    want = [(b, seg, why, f) for b, seg, why, _, _, f in stream_res.remine_log]
+    gens = [ev.generation for ev, _ in res.events if ev.remined]
+    if log != want or gens != list(range(len(want))):
+        fail(f"stream_cluster: re-mine log {log} (generations {gens}) against the stream "
+             f"phase's {want}")
+    needed = ("multi_extension_supports", "extension_supports", "subset_superset_counts",
+              "block_itemset_supports", "pair_supports")
+    if any(launches[k] <= 0 for k in needed) or res.launches != launches:
+        fail(f"stream_cluster: B1, B3, B4, B5 and B6 must all launch: {launches}, "
+             f"run {res.launches}")
+
+    store = TxStore.open(spill_dir)
+    spilled = n_blocks - window
+    block_tx = int(STREAM_ARGS[STREAM_ARGS.index("--blocktx") + 1])
+    if store.n_blocks != spilled or store.n_tx != spilled * block_tx \
+            or len(spill_s) != spilled or len(blocks) != spilled:
+        fail(f"stream_cluster: {store.n_blocks} blocks ({store.n_tx} rows) spilled, "
+             f"{len(spill_s)} appends, want {spilled}")
+    reader = BlockReader(store, STORE_BUDGET_BLOCKS, device=dev)
+    got, got_wall = mine.mine_store(store, support=SUPPORT, P=4, frontier=16, device=dev,
+                                    materialize=True, reader=reader)
+    if not 0 < reader.peak_host_bytes <= reader.budget_bytes:
+        fail(f"stream_cluster: host high-water {reader.peak_host_bytes}B against a budget "
+             f"of {reader.budget_bytes}B")
+    ref, ref_wall = mine.mine_dense(np.concatenate(blocks), support=SUPPORT, P=4, frontier=16,
+                                    device=dev, materialize=True)
+    if not got.fi_dict or not mine.parity(got.fi_dict, ref.fi_dict):
+        fail(f"stream_cluster: the spilled store's FITable ({len(got.fi_dict)}) differs from "
+             f"the dense mine of its blocks ({len(ref.fi_dict)})")
+    st = res.miner.stats
+    emit({"phase": "stream_cluster", "nvidia_smi": smi, "db_family": THESIS_DB,
+          "argv": STREAM_ARGS + ["--cluster", "4", "--spill", "DIR"],
+          "blocks": st.blocks_in, "tx_in": st.tx_in, "ingest_s": res.ingest_s,
+          "ingest_rows_per_s": st.tx_in / res.ingest_s,
+          "stream_ingest_rows_per_s": stream_res.miner.stats.tx_in / stream_res.ingest_s,
+          "spill_s": sum(spill_s), "spill_ms_per_block": pctl(np.asarray(spill_s) * 1e3),
+          "remine_log": [{"block": b, "segment": seg, "reason": why, "mine_ms": m_ms,
+                          "swap_ms": s_ms, "n_fis": f} for b, seg, why, m_ms, s_ms, f
+                         in res.remine_log],
+          "stream_remine_ms": [m_ms for _, _, _, m_ms, _, _ in stream_res.remine_log],
+          "same_remine_log_as_stream": True, "torn": res.torn,
+          "delta_checks": res.delta_checks, "delta_mismatches": res.delta_mismatches,
+          "spilled_blocks": store.n_blocks, "spilled_rows": store.n_tx,
+          "store_bytes": store.total_bytes,
+          "store_mine": {"n_fis": got.n_fis, "wall_s": got_wall, "phase_s": got.phase_s,
+                         "peak_host_bytes": reader.peak_host_bytes,
+                         "budget_bytes": reader.budget_bytes, "equals_dense": True,
+                         "dense_wall_s": ref_wall},
+          "wall_s": wall_s, "peak_mem_bytes": peak, "launches": launches})
+    return launches
 
 
 def phase_profile(torch, dev, dense, serve_run, store):
@@ -1543,9 +1932,15 @@ def main() -> None:
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
     launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
     fi = serve_run.fi_index
-    launches_stream, stream_timings = phase_stream(torch, dev, sms, fi.masks[: fi.n_fis])
+    launches_stream, stream_timings, stream_res, stream_blocks = phase_stream(
+        torch, dev, sms, fi.masks[: fi.n_fis])
     stream_timing = stream_timings[1]
     launches["block_itemset_supports"] = launches_stream["block_itemset_supports"]
+    engine = stream_res.miner.engine
+    service_launches = phase_service(torch, dev, dense, serve_run, (engine.index, engine.rules),
+                                     smi, store_dir.name)
+    cluster_stream_launches = phase_stream_cluster(torch, dev, stream_res, stream_blocks, smi,
+                                                   store_dir.name)
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty
@@ -1581,6 +1976,8 @@ def main() -> None:
             if t["name"] == "extension_supports":  # B3 on main, and on the MFI paths
                 summary[-1]["launches_variants"] = b3_variants
             summary[-1]["launches_store"] = store_launches[t["name"]]
+            summary[-1]["launches_service"] = service_launches[t["name"]]
+            summary[-1]["launches_stream_cluster"] = cluster_stream_launches[t["name"]]
             if t["name"] == "block_itemset_supports":  # B5 over the store's blocks
                 summary[-1]["at_store_shape"] = {key: store_timing[key] for key in keys
                                                  if key in store_timing}

@@ -10,6 +10,9 @@
                PBEC subtrees from overloaded to idle miners.
 ``checkpoint`` Atomic round checkpoints (CRC32C-guarded payload, plan-hash
                binding) in the JAX package's format, for bit-exact resume.
+
+``executor.cluster_mine_fn`` plugs the executor into the streaming miner as
+its re-miner.
 """
 from repro_torch.cluster.checkpoint import (  # noqa: F401
     CheckpointError,
@@ -22,6 +25,7 @@ from repro_torch.cluster.executor import (  # noqa: F401
     ClusterResult,
     FITable,
     RoundStats,
+    cluster_mine_fn,
     execute,
 )
 from repro_torch.cluster.planner import (  # noqa: F401

@@ -21,6 +21,8 @@ phases compile once; PyTorch compiles nothing, so a round passes its real
 classes, and the exchange, the replication, the trips and the FITable are
 the same.  Donating a class re-runs the Phase-3 exchange for the round that
 mines it, so the result stays exact however many donations are made.
+
+:func:`cluster_mine_fn` makes the executor the streaming miner's re-miner.
 """
 from __future__ import annotations
 
@@ -402,3 +404,47 @@ def execute(
 
 def _concat(parts: List[np.ndarray], empty: np.ndarray) -> np.ndarray:
     return np.concatenate(parts, axis=0).astype(empty.dtype) if parts else empty
+
+
+# ---------------------------------------------------------------------------
+# StreamingMiner integration — the distributed re-miner
+# ---------------------------------------------------------------------------
+
+
+def cluster_mine_fn(
+    P: int = 4,
+    cluster_params: Optional[ClusterParams] = None,
+    seed: int = 0,
+) -> Callable:
+    """A ``StreamingMiner.mine_fn`` that re-mines the window distributed.
+
+    Shards the window's rows over the P miners on the window's device and
+    runs the full planner → exchange → shard-mine → rebalance pipeline.
+    ``cluster_params`` overrides everything except ``min_support_rel``,
+    which is always derived from the trigger's absolute minsup.
+    """
+
+    def mine(window, abs_minsup: int) -> Dict[frozenset, int]:
+        n_tx = window.n_tx
+        if n_tx % P:
+            raise ValueError(f"window size {n_tx} not divisible by P={P}")
+        shards = window.rows().reshape(P, n_tx // P, window.n_words)
+        base = cluster_params or ClusterParams(
+            planner=planner_mod.PlannerParams(
+                n_db_sample=min(1024, n_tx), n_fi_sample=512
+            )
+        )
+        # (abs−0.5)/n_tx survives the float round-trip: the planner's
+        # ceil(rel·n_tx) lands exactly on abs_minsup, whereas abs/n_tx can
+        # ceil to abs+1 and silently drop itemsets at exactly abs_minsup
+        params = dataclasses.replace(
+            base,
+            planner=dataclasses.replace(
+                base.planner, min_support_rel=(abs_minsup - 0.5) / n_tx
+            ),
+        )
+        res = execute(shards, window.n_items, params, seed=seed,
+                      device=window.device)
+        return res.table.to_dict()
+
+    return mine

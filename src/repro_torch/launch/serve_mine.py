@@ -30,6 +30,7 @@ from repro_torch.core.rules import format_rule, pack_itemsets
 from repro_torch.data.ibm_gen import generate_dense, params_from_name
 from repro_torch.kernels import ops
 from repro_torch.launch import mine
+from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.serve import QueryCache, QueryEngine
 from repro_torch.serve.cache import query_key
 from repro_torch.serve.index import FIIndex, RuleIndex, build_indexes
@@ -148,8 +149,10 @@ class ServeRun:
     launches: Dict[str, int]        # kernel launches of the warm and the replay
 
 
-def run(dense: np.ndarray, args, device) -> ServeRun:
-    """Mine ``dense``, build the indexes, warm and replay the workload."""
+def run(dense: np.ndarray, args, device, obs=None) -> ServeRun:
+    """Mine ``dense``, build the indexes, warm and replay the workload;
+    ``obs`` (a :func:`start_session` session) gets the ``served`` event and
+    the sealed record."""
     dev = device_mod.resolve(device)
     n_tx, n_items = dense.shape
     print(f"mine: db={args.db} |D|={n_tx} |B|={n_items} sup={args.support} "
@@ -205,6 +208,17 @@ def run(dense: np.ndarray, args, device) -> ServeRun:
           f"repro_torch.launch.stream_mine) F={es['n_fis']} R={es['n_rules']}")
     print("kernel launches (warm + replay): "
           + " ".join(f"{k}={n}" for k, n in launches.items()))
+    if obs:
+        obs.event("served", queries=len(stream), dispatched=n_dispatched,
+                  qps=qps)
+        obs.finish(
+            n_fis=fi_index.n_fis, n_rules=rule_index.n_rules, qps=qps,
+            serve_wall_s=serve_s,
+            batch_p50_ms=float(np.percentile(lat, 50)),
+            batch_p95_ms=float(np.percentile(lat, 95)),
+            batch_p99_ms=float(np.percentile(lat, 99)),
+            cache_hit_rate=s.hit_rate,
+        )
 
     # a taste of the product: the most confident rules overall
     print(f"top-{min(5, rule_index.n_rules)} rules by confidence:")
@@ -235,14 +249,16 @@ def build_parser() -> argparse.ArgumentParser:
                     help="distinct queries per kind in the workload")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_obs_flags(ap)
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
     args = build_parser().parse_args(argv)
     dev = device_mod.resolve(args.device)
+    obs = start_session(args, "serve_mine")
     dense = generate_dense(params_from_name(args.db, seed=args.seed))
-    return run(dense, args, dev)
+    return run(dense, args, dev, obs=obs)
 
 
 if __name__ == "__main__":

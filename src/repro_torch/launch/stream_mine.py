@@ -4,7 +4,10 @@ Transactions arrive in blocks, the sliding window advances, mined supports
 are delta-updated in place (one arrive/expire sweep of kernel B5 per block),
 and the drift monitor decides when the serving table is stale enough to
 re-mine; the window is then re-mined with the port's Parallel-FIMI pipeline
-and the serving indexes are hot-swapped under live traffic.  Between admits
+(or, with ``--cluster N``, the cluster executor over N miners) and the
+serving indexes are hot-swapped under live traffic.  ``--spill DIR``
+persists every block the window evicts into a store at DIR (resumed if one
+is there), re-minable with ``mine --store DIR``.  Between admits
 a Zipf-hot workload of support lookups is served through the engine (kernel
 B4) and the LRU cache, whose keys carry the swap generation.  Runs on the
 card unless ``--device cpu`` is given; without CUDA and without that flag it
@@ -20,7 +23,10 @@ recompute after every block: must be 0), and the kernel launches of the run.
   python -m repro_torch.launch.stream_mine --db T500I0.1P50PL10TL40 --support 0.2 \\
       --blocks 8 --blocktx 65536 --stream 24 --breaks 12 --minconf 0.6
   python -m repro_torch.launch.stream_mine --support 0.12 --blocks 8 --blocktx 256 \\
-      --stream 24 --breaks 12 --device cpu
+      --stream 24 --breaks 12 --device cpu [--cluster 4] [--spill DIR] [--trace DIR]
+
+The reference's ``--force`` (a kernel backend pin) has no counterpart: the
+tensors' device picks the sweep, and ``--device`` picks the device.
 """
 from __future__ import annotations
 
@@ -31,11 +37,13 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch import cluster as cluster_mod
 from repro_torch import device as device_mod
 from repro_torch.core import bitmap as bm
 from repro_torch.core import eclat, fimi
 from repro_torch.data.ibm_gen import drifting_stream, params_from_name
 from repro_torch.kernels import ops
+from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.serve.cache import query_key
 from repro_torch.stream import StreamingMiner, StreamParams, fimi_mine_fn
 
@@ -121,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--cooldown", type=int, default=2,
                     help="blocks after a re-mine before triggers re-arm")
     ap.add_argument("-P", type=int, default=4, help="miners for re-mining")
+    ap.add_argument("--cluster", type=int, default=0, metavar="N",
+                    help="re-mine with the distributed cluster executor over "
+                         "N miners (planner + exchange + shard-mine + "
+                         "rebalance) instead of the in-process fimi.run")
     ap.add_argument("--frontier", type=int, default=16)
     ap.add_argument("--queries", type=int, default=512,
                     help="queries served per ingested block")
@@ -128,36 +140,53 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--topk", type=int, default=5)
     ap.add_argument("--minconf", type=float, default=0.6)
     ap.add_argument("--cache", type=int, default=2048)
+    ap.add_argument("--spill", default="", metavar="DIR",
+                    help="persist expired window blocks to a TxStore at DIR")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_obs_flags(ap)
     return ap
 
 
 def main(argv: Optional[Sequence[str]] = None) -> Optional[StreamRun]:
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
     gen_params = params_from_name(args.db, seed=args.seed)
     breaks = tuple(int(b) for b in args.breaks.split(",") if b != "")
     n_items = gen_params.n_items
     window_tx = args.blocks * args.blocktx
+    if args.cluster and window_tx % args.cluster:
+        ap.error(f"--cluster {args.cluster} must divide the window size "
+                 f"({args.blocks} blocks x {args.blocktx} tx = {window_tx})")
+    obs = start_session(args, "stream_mine")
 
-    mine_fn = fimi_mine_fn(
-        P=args.P,
-        fimi_params=fimi.FimiParams(
-            n_db_sample=min(2048, window_tx),
-            n_fi_sample=1024,
-            eclat=eclat.EclatConfig(max_out=1 << 15, max_stack=8192,
-                                    frontier_size=args.frontier),
-        ),
-        seed=args.seed,
-    )
+    dfs = eclat.EclatConfig(max_out=1 << 15, max_stack=8192, frontier_size=args.frontier)
+    if args.cluster:
+        mine_fn = cluster_mod.cluster_mine_fn(
+            P=args.cluster,
+            cluster_params=cluster_mod.ClusterParams(
+                planner=cluster_mod.PlannerParams(
+                    n_db_sample=min(2048, window_tx), n_fi_sample=1024),
+                eclat=dfs,
+            ),
+            seed=args.seed,
+        )
+    else:
+        mine_fn = fimi_mine_fn(
+            P=args.P,
+            fimi_params=fimi.FimiParams(n_db_sample=min(2048, window_tx), n_fi_sample=1024,
+                                        eclat=dfs),
+            seed=args.seed,
+        )
     sp = StreamParams(
         n_blocks=args.blocks, block_tx=args.blocktx,
         min_support_rel=args.support, min_confidence=args.minconf,
         eps=args.eps, delta=args.delta, border_margin=args.margin,
         border_hysteresis=args.hysteresis, check_every=args.check_every,
         cooldown_blocks=args.cooldown,
-        batch=args.batch, top_k=args.topk, cache_capacity=args.cache, seed=args.seed,
+        batch=args.batch, top_k=args.topk, cache_capacity=args.cache,
+        spill_dir=args.spill or None, seed=args.seed,
     )
     sm = StreamingMiner(sp, n_items, mine_fn=mine_fn, device=dev)
     print(f"stream: db-family={args.db} |B|={n_items} window={args.blocks}"
@@ -171,6 +200,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[StreamRun]:
     max_stale = 0.0
     events: List = []
     remine_log: List = []
+    prev_gen = -1
     for dense_block, segment in drifting_stream(
         gen_params, n_blocks=args.stream, block_tx=args.blocktx, breaks=breaks,
     ):
@@ -182,13 +212,31 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[StreamRun]:
         ingest_s += time.perf_counter() - t0
         events.append((ev, segment))
         if ev.remined:
-            torn += parity_failures(sm, rng)     # after the swap
+            post = parity_failures(sm, rng)      # after the swap
+            torn += post
+            if args.cluster:
+                # a distributed re-mine must preserve the serving invariants:
+                # the swap is atomic (no torn index) and bumps the generation
+                if post:
+                    raise RuntimeError(
+                        f"cluster re-mine broke index parity ({post} failures)")
+                if ev.generation != prev_gen + 1:
+                    raise RuntimeError(f"cluster re-mine generation {ev.generation} "
+                                       f"!= {prev_gen + 1}")
             remine_log.append((ev.block_index, segment, ev.remine_reason, ev.mine_ms,
                                ev.swap_ms, sm.engine.index.n_fis))
+            if obs:
+                obs.event(
+                    "remine", block=ev.block_index, segment=segment,
+                    reason=ev.remine_reason, mine_ms=ev.mine_ms,
+                    swap_ms=ev.swap_ms, generation=ev.generation,
+                    n_fis=sm.engine.index.n_fis,
+                )
             print(f"  block {ev.block_index:>3} (segment {segment}): "
                   f"re-mine [{ev.remine_reason}] -> F={sm.engine.index.n_fis} "
                   f"R={sm.engine.rules.n_rules} gen={ev.generation} "
                   f"mine={ev.mine_ms:.0f}ms swap={ev.swap_ms:.2f}ms", flush=True)
+        prev_gen = sm.engine.generation if sm.engine else -1
         if sm.engine is not None:
             # off the clock: one full recompute of the window checks the
             # delta-maintained supports and measures the staleness
@@ -209,6 +257,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[StreamRun]:
     if sm.engine is None:
         print(f"no mine: stream ended after {s.blocks_in} blocks, window "
               f"needs {args.blocks} to fill (raise --stream)")
+        if obs:
+            obs.finish(**s.as_dict())
         return None
     reasons = {
         "initial": s.remines - s.fired_error - s.fired_border - s.fired_recovery,
@@ -233,6 +283,17 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[StreamRun]:
     print(f"delta supports vs full recompute: {delta_mismatches} of {delta_checks} "
           "blocks differ" + ("  <-- BUG" if delta_mismatches else ""))
     print("kernel launches: " + " ".join(f"{k}={n}" for k, n in launches.items()))
+    if obs:
+        obs.finish(
+            **s.as_dict(), max_staleness=max_stale, torn=torn,
+            ingest_wall_s=ingest_s, serve_wall_s=serve_s,
+            n_served=n_served, generation=sm.engine.generation,
+        )
+    if sm.spill is not None:
+        hist = sm.spill.store()
+        print(f"spill: {hist.n_blocks} expired blocks persisted to "
+              f"{args.spill} ({hist.n_tx} tx, {hist.total_bytes} packed "
+              f"bytes) — re-minable via `launch.mine --store`")
     return StreamRun(sm, events, remine_log, torn, delta_mismatches, delta_checks, max_stale,
                      ingest_s, serve_s, n_served, n_dispatched, launches)
 

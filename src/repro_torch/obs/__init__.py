@@ -1,5 +1,6 @@
 """Observability of the port: metrics registry, span tracing, run records,
-the kernel profiler and the progress estimator.
+the kernel profiler, the progress estimator, the serving tier's SLO windows
+and the perf history.
 
 Own copies of the JAX package's ``obs`` modules, with the same behaviour and
 the same on-disk record, so the reference's ``launch/obs_report.py`` reads a
@@ -18,6 +19,11 @@ run of either package:
     the host) that the profiler and ``chip_smoke.py``'s bounds price with;
   * :mod:`repro_torch.obs.profile`  — the kernel profiler: per-family
     measured-vs-modeled attribution;
+  * :mod:`repro_torch.obs.slo`      — sliding-window histograms/counters and
+    the SLO policy engine (windowed p50/p95/p99, QPS, shed rate,
+    error-budget burn-rate alerts with hysteresis) behind the service;
+  * :mod:`repro_torch.obs.perfdb`   — the stamped perf history
+    (``BENCH_torch_HISTORY.jsonl``), its trends and regression check;
   * :mod:`repro_torch.obs.progress` — the sample-grounded progress/ETA
     estimator.
 """
@@ -35,7 +41,15 @@ from repro_torch.obs.metrics import (  # noqa: F401
     registry,
     snapshot,
 )
+from repro_torch.obs.perfdb import check_regressions, trends  # noqa: F401
 from repro_torch.obs.profile import KernelProfiler, cost_model, profiler  # noqa: F401
 from repro_torch.obs.progress import ProgressEstimator, ProgressSnapshot  # noqa: F401
 from repro_torch.obs.runlog import RunLog, load_run  # noqa: F401
+from repro_torch.obs.slo import (  # noqa: F401
+    SLOPolicy,
+    SLOStatus,
+    SLOTracker,
+    WindowedCounter,
+    WindowedHistogram,
+)
 from repro_torch.obs.trace import TRACER, Tracer, tracer  # noqa: F401

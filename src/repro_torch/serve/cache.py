@@ -12,7 +12,11 @@ query mask plus the query kind and its static knobs — exact, collision-free
 and already in wire format (no canonicalization step; two baskets hash
 equal iff their bitmaps are equal).
 
-Plain ``OrderedDict`` LRU with hit/miss/eviction counters; the launcher
+``OrderedDict`` LRU with hit/miss/eviction counters, its entries under one
+lock: the serving service's dispatcher reads it while a hot-swap clears it
+from another thread (the JAX package's cache has no lock, and a clear
+between a lookup's membership test and its ``move_to_end`` raises there;
+the values and counters are the same either way).  The launcher
 (`launch/serve_mine.py`) reports the hit rate next to QPS and latency.
 ``split_batch`` is the serving-loop helper: partition a query batch into
 cached results and the de-duplicated miss set that still needs a dispatch
@@ -20,6 +24,7 @@ cached results and the de-duplicated miss set that still needs a dispatch
 """
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Any, Dict, Hashable, List, Optional, Sequence, Tuple
 
@@ -131,35 +136,39 @@ class QueryCache:
         self.capacity = capacity
         self.stats = CacheStats()
         self._data: "OrderedDict[Tuple, Any]" = OrderedDict()
+        self._lock = threading.Lock()
 
     def __len__(self) -> int:
         return len(self._data)
 
     def get(self, key: Tuple) -> Optional[Any]:
-        if self.capacity <= 0 or key not in self._data:
-            self.stats.miss()
-            return None
-        self.stats.hit()
-        self._data.move_to_end(key)
-        return self._data[key]
+        with self._lock:
+            if self.capacity <= 0 or key not in self._data:
+                self.stats.miss()
+                return None
+            self.stats.hit()
+            self._data.move_to_end(key)
+            return self._data[key]
 
     def clear(self) -> int:
         """Drop every entry (index hot-swap invalidation); returns the count
         dropped.  Hit/miss/eviction counters survive — only the data goes."""
-        n = len(self._data)
-        self._data.clear()
-        self.stats.invalidation()
-        return n
+        with self._lock:
+            n = len(self._data)
+            self._data.clear()
+            self.stats.invalidation()
+            return n
 
     def put(self, key: Tuple, value: Any) -> None:
         if self.capacity <= 0:
             return
-        if key in self._data:
-            self._data.move_to_end(key)
-        self._data[key] = value
-        if len(self._data) > self.capacity:
-            self._data.popitem(last=False)
-            self.stats.eviction()
+        with self._lock:
+            if key in self._data:
+                self._data.move_to_end(key)
+            self._data[key] = value
+            if len(self._data) > self.capacity:
+                self._data.popitem(last=False)
+                self.stats.eviction()
 
     # -- batch helper ---------------------------------------------------------
     def split_batch(

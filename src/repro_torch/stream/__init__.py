@@ -2,7 +2,8 @@
 drift-triggered re-mining and hot-swapped serving indexes.
 
   * :mod:`repro_torch.stream.window`  — device-resident ring buffer of packed
-    transaction blocks, O(1) admit/expire;
+    transaction blocks, O(1) admit/expire, and the store-backed spill of
+    the blocks it evicts;
   * :mod:`repro_torch.stream.monitor` — Thm 6.1 sample-based staleness test
     plus exact border tracking, deciding *when to re-mine*;
   * :mod:`repro_torch.stream.engine`  — :class:`StreamingMiner`: arrive/expire
@@ -18,4 +19,4 @@ from repro_torch.stream.engine import (  # noqa: F401
     fimi_mine_fn,
 )
 from repro_torch.stream.monitor import DriftMonitor, DriftVerdict  # noqa: F401
-from repro_torch.stream.window import SlidingWindow  # noqa: F401
+from repro_torch.stream.window import SlidingWindow, WindowSpill  # noqa: F401

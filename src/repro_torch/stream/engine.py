@@ -1,7 +1,7 @@
 """StreamingMiner — keep the serving layer fresh against a live stream.
 
-The port of the JAX package's ``stream/engine.py`` (without the store-backed
-spill).  It runs the loop the subsystem exists for::
+The port of the JAX package's ``stream/engine.py``.  It runs the loop the
+subsystem exists for::
 
     admit block ─→ delta-support update (kernel B5) ─→ drift check ─→ (on
         trigger) full re-mine of the window ─→ build standby indexes ─→
@@ -11,6 +11,10 @@ Between re-mines the serving indexes are immutable, while a host-side
 support vector tracks the *exact* current window supports of every indexed
 itemset through the ``[2, F]`` arrive/expire sweep (``ops.delta_supports``).
 That vector feeds the monitor's border signal and the staleness report.
+With ``StreamParams.spill_dir`` set, every evicted block is appended to a
+store there (:class:`~repro_torch.stream.window.WindowSpill`), the stream's
+history.  The loop's spans are the reference's: ``stream/drift`` (an
+instant when a drift check fires), ``stream/remine`` and ``stream/swap``.
 
 Re-mining is pluggable: ``mine_fn(window, abs_minsup) -> {frozenset: supp}``
 defaults to the port's Parallel-FIMI pipeline over the window
@@ -34,11 +38,12 @@ from repro_torch.core import bitmap as bm
 from repro_torch.core import eclat, fimi
 from repro_torch.kernels import ops
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.serve.cache import QueryCache
 from repro_torch.serve.engine import QueryEngine
 from repro_torch.serve.index import build_indexes
 from repro_torch.stream.monitor import DriftMonitor, DriftVerdict
-from repro_torch.stream.window import SlidingWindow
+from repro_torch.stream.window import SlidingWindow, WindowSpill
 
 MineFn = Callable[[SlidingWindow, int], Dict[frozenset, int]]
 
@@ -60,6 +65,7 @@ class StreamParams:
     batch: int = 256                # QueryEngine dispatch width
     top_k: int = 5
     cache_capacity: int = 2048
+    spill_dir: Optional[str] = None  # persist expired blocks to a TxStore
     seed: int = 0
 
 
@@ -168,6 +174,12 @@ class StreamingMiner:
             seed=params.seed,
         )
         self.mine_fn = mine_fn or fimi_mine_fn(seed=params.seed)
+        # store-backed spill: evicted blocks persist as the stream's history
+        self.spill: Optional[WindowSpill] = (
+            WindowSpill(params.spill_dir, params.block_tx, n_items)
+            if params.spill_dir
+            else None
+        )
         self.cache = QueryCache(capacity=params.cache_capacity)
         self.engine: Optional[QueryEngine] = None
         self.current_supports: Optional[np.ndarray] = None  # int64[F], exact
@@ -231,6 +243,8 @@ class StreamingMiner:
         """Ingest one stream block (dense bool [T, I] or packed words [T, IW])."""
         arrive = self._packed(block)
         expired = self.window.admit(arrive)
+        if expired is not None and self.spill is not None:
+            self.spill.append(expired)
         self.monitor.admit(arrive)
         self.stats.blocks_in += 1
         self.stats.tx_in += self.window.block_tx
@@ -287,6 +301,11 @@ class StreamingMiner:
                 else:
                     self.stats.fired_error += 1
                 reg.counter(f"stream/fired_{ev.verdict.reason}").inc()
+                obs_trace.TRACER.instant(
+                    "stream/drift",
+                    reason=ev.verdict.reason,
+                    block=ev.block_index,
+                )
                 self._remine(ev.verdict.reason, ev)
         return self._stamp(ev)
 
@@ -297,22 +316,26 @@ class StreamingMiner:
     def _remine(self, reason: str, ev: AdmitEvent) -> None:
         """Mine the current window, build standby indexes, hot-swap."""
         t0 = time.perf_counter()
-        fis = self.mine_fn(self.window, self.abs_minsup)
-        fi_idx, rule_idx = build_indexes(
-            fis, self.n_items, self.window.n_tx,
-            min_confidence=self.params.min_confidence, device=self.device,
-        )
-        device_mod.synchronize(self.device)
+        with obs_trace.TRACER.span("stream/remine", reason=reason,
+                                   block=ev.block_index):
+            fis = self.mine_fn(self.window, self.abs_minsup)
+            fi_idx, rule_idx = build_indexes(
+                fis, self.n_items, self.window.n_tx,
+                min_confidence=self.params.min_confidence, device=self.device,
+            )
+            # the standby pair is complete on the device before it is live
+            device_mod.synchronize(self.device)
         ev.mine_ms = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
-        if self.engine is None:
-            self.engine = QueryEngine(
-                fi_idx, rule_idx, batch=self.params.batch, top_k=self.params.top_k,
-                cache=self.cache,
-            )
-        else:
-            self.engine.swap_indexes(fi_idx, rule_idx)
+        with obs_trace.TRACER.span("stream/swap", reason=reason):
+            if self.engine is None:
+                self.engine = QueryEngine(
+                    fi_idx, rule_idx, batch=self.params.batch,
+                    top_k=self.params.top_k, cache=self.cache,
+                )
+            else:
+                self.engine.swap_indexes(fi_idx, rule_idx)
         ev.swap_ms = (time.perf_counter() - t0) * 1e3
         reg = obs_metrics.registry()
         reg.counter("stream/remines").inc()

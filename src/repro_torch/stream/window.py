@@ -1,7 +1,6 @@
 """Device-resident sliding window of packed transaction blocks.
 
-The port of the JAX package's ``stream/window.py`` (without ``WindowSpill``,
-which sits on the store).  The stream arrives in blocks of ``block_tx``
+The port of the JAX package's ``stream/window.py``.  The stream arrives in blocks of ``block_tx``
 transactions, horizontally packed (``int32[block_tx, IW]``, the reference's
 uint32 bits).  The window holds the most recent ``n_blocks`` blocks in a
 ring ``int32[B, T_blk, IW]`` on the device that never moves: admit writes
@@ -21,7 +20,8 @@ Support bookkeeping against the window is the delta identity kernel B5
   supp_W'(f) = supp_W(f) + |{t ∈ arrive : f ⊆ t}| − |{t ∈ expire : f ⊆ t}|
 
 :meth:`rows` / :meth:`to_bitmap_db` materialize the logical window (oldest →
-newest) for full re-mining, by a gather of block slots.
+newest) for full re-mining, by a gather of block slots.  :class:`WindowSpill`
+persists the evicted blocks into a store, the stream's history.
 """
 from __future__ import annotations
 
@@ -138,3 +138,58 @@ class SlidingWindow:
     def to_bitmap_db(self) -> bm.BitmapDB:
         """Full BitmapDB of the current window (the re-mine input)."""
         return bm.rebuild_vertical(self.rows(), self.n_items, self.n_tx)
+
+
+class WindowSpill:
+    """Store-backed spill mode: expired blocks persist instead of vanishing.
+
+    Wraps an append-only :class:`repro_torch.store.StoreWriter` on
+    ``directory``; every block the ring evicts is appended (oldest → newest,
+    the stream's arrival order), so the on-disk store is the stream's
+    **history** beyond the window — re-minable later with
+    ``fimi.run(store, …)`` or auditable with the streamed support counters.
+    An existing store at ``directory`` is resumed (appended after its last
+    block; geometry must match), never reset — a restarted stream extends
+    its history.  The resume path runs the writer's shallow fsck pass first,
+    which adopts any blocks a crashed stream saved but never indexed and
+    clears torn residue.
+
+    A block is the window's int32 words, on the device; the spill copies it
+    to the host and writes its bits as the reference's uint32 (a view, not
+    a value cast), so the store is byte-identical to the JAX package's
+    spill of the same stream.
+
+    The engine wires this up via ``StreamParams.spill_dir``; standalone use::
+
+        spill = WindowSpill(directory, window.block_tx, window.n_items)
+        expired = window.admit(block)
+        if expired is not None:
+            spill.append(expired)
+    """
+
+    def __init__(
+        self, directory: str, block_tx: int, n_items: int, *,
+        source: str = "stream-spill",
+    ):
+        from repro_torch.store.store import StoreWriter
+
+        self.directory = directory
+        self._writer = StoreWriter(
+            directory, n_items=n_items, block_tx=block_tx, source=source,
+            resume=True,
+        )
+
+    def append(self, expired_packed) -> int:
+        """Persist one evicted packed block ``int32[T_blk, IW]`` (a tensor on
+        any device) or ``uint32[T_blk, IW]`` (host words)."""
+        if isinstance(expired_packed, torch.Tensor):
+            expired_packed = bm.to_reference(expired_packed)
+        return self._writer.append_packed(np.asarray(expired_packed))
+
+    @property
+    def n_spilled(self) -> int:
+        return len(self._writer.manifest.blocks)
+
+    def store(self):
+        """Open the spilled history as a readable :class:`TxStore`."""
+        return self._writer.close()

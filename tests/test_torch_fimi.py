@@ -178,6 +178,14 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
         " '--support', '0.15', '--blocks', '4', '--blocktx', '128', '--stream', '8',"
         " '--breaks', '5', '-P', '2']\n"
         "runpy.run_module('repro_torch.launch.stream_mine', run_name='__main__')\n"
+        "sys.argv = ['stream_mine', '--device', 'cpu', '--db', 'T1I0.02P6PL4TL7',"
+        " '--support', '0.15', '--blocks', '4', '--blocktx', '128', '--stream', '8',"
+        f" '--breaks', '5', '--cluster', '2', '--spill', {str(tmp_path / 'spill')!r}]\n"
+        "runpy.run_module('repro_torch.launch.stream_mine', run_name='__main__')\n"
+        "from repro_torch.launch import serve_load\n"
+        "assert serve_load.main(['--device', 'cpu', '--db', 'T0.25I0.016P6PL4TL6', '--qps',"
+        " '100', '--duration', '0.5', '--ramp', '0.2', '--window', '1.0', '--report-every',"
+        " '0.25', '--batch', '32', '--slo-p99-ms', '60000', '--no-dashboard', '--gate']) == 0\n"
         "import repro_torch.obs, repro_torch.obs.session\n"
         "from repro_torch.launch import profile_demo\n"
         "assert profile_demo.main(['--device', 'cpu']) == 0\n"
@@ -185,8 +193,10 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
         "print(json.dumps(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # from a working directory of its own: the gated serve_load run writes
+    # its BENCH file and history row there
     done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          env=env, cwd=ROOT, timeout=240)
+                          env=env, cwd=tmp_path, timeout=240)
     assert done.returncode == 0, done.stderr
     lines = done.stdout.strip().splitlines()
     assert "|F| = 3370" in done.stdout
@@ -198,6 +208,11 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
     # serving and streaming ran, on the plain versions
     assert "R=18206 rules" in done.stdout and "torn-index parity failures: 0" in done.stdout
     assert "subset_superset_counts=0 block_itemset_supports=0" in done.stdout
+    # the cluster re-miner and the spill, and the load harness behind its gate
+    assert "spill: 4 expired blocks persisted to" in done.stdout
+    assert "SLO gate: ok" in done.stdout
+    assert (tmp_path / "BENCH_torch_serve.json").is_file()
+    assert (tmp_path / "BENCH_torch_HISTORY.jsonl").is_file()
     # and the profiled demo, every family timed
     assert "pair_supports=0 pair_supports_mxu=0" in done.stdout
     assert "profile_demo: families without measured time" not in done.stdout
