@@ -115,6 +115,17 @@ prints one JSON object on a line of its own:
            as the host generated them for the stream; ingest rows/s beside
            the ``stream`` phase's, the spill's seconds, the re-mine walls and
            the launches;
+  cluster_obs  the cluster launcher through its ``main`` at the ``cluster``
+           phase's settings with ``--trace --profile --doctor`` (the database
+           the one already generated): the FITable of ``main``, the speedup
+           waterfall's terms summing to its gap within 0.05x, the port's
+           ``obs_report`` reading the record (``summary``, ``critpath`` with
+           ``cluster/mine`` on it, ``doctor``); then with ``--force-skew``:
+           ``rebalance-not-engaging`` at ``error``, ``doctor --gate`` exit 1;
+           the findings, the waterfall's terms and the critical path of both;
+  ranks    ``mine`` and ``cluster_mine`` with ``-P 1 --devices 1`` in child
+           processes, each miner a rank of a one-rank NCCL group on the card:
+           ``backend=nccl``, |F| and the FITable's SHA-256 those of ``main``;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -137,6 +148,7 @@ import contextlib
 import ctypes
 import gc
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -1324,6 +1336,167 @@ def phase_stream_cluster(torch, dev, stream_res, stream_blocks, smi, tmp):
     return launches
 
 
+def cluster_obs_run(dev, dense, run_dir, *extra):
+    """``cluster_mine.main`` on the thesis database with ``--trace --profile
+    --doctor`` (and ``extra``), its database the one already generated; its
+    result, wall, output and the launches of exactly that run."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import cluster_mine
+
+    resolve = cluster_mine.resolve_source
+    out = io.StringIO()
+    cluster_mine.resolve_source = lambda *a, **kw: (None, dense, f"db={THESIS_DB}")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            res = cluster_mine.main(["--db", THESIS_DB, "--support", str(SUPPORT), "-P", "4",
+                                     "--frontier", "16", "--device", dev.type, "--trace",
+                                     run_dir, "--profile", "--doctor", *extra])
+    finally:
+        cluster_mine.resolve_source = resolve
+    wall_s = time.perf_counter() - t0
+    return res, wall_s, out.getvalue(), launch_counts()
+
+
+def obs_report_run(*argv):
+    """The port's ``obs_report`` in-process: (exit code, output)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import obs_report
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(io.StringIO()):
+        code = obs_report.main(list(argv))
+    return code, out.getvalue()
+
+
+def phase_cluster_obs(torch, dev, dense, want, smi, tmp):
+    """The cluster launcher through its ``main`` at the ``cluster`` phase's
+    settings with ``--trace --profile --doctor``: the FITable of ``main``, the
+    speedup waterfall's terms summing to its gap within 0.05x, the port's
+    ``obs_report`` reading the record (``summary``, ``critpath`` with
+    ``cluster/mine`` on it, ``doctor``); then the same with ``--force-skew``,
+    which the doctor must report as ``rebalance-not-engaging`` at ``error``
+    and ``obs_report doctor --gate`` must fail.  The findings and the terms
+    are this card's result, not pass conditions of the healthy run."""
+    from repro_torch.obs import doctor, runlog, speedup
+
+    history = ["--history", f"{tmp}/no_history.jsonl"]
+    out = {}
+    for name, extra in (("healthy", ()), ("force_skew", ("--force-skew",))):
+        run_dir = f"{tmp}/cluster_obs_{name}"
+        torch.cuda.synchronize()
+        res, wall_s, text, launches = cluster_obs_run(dev, dense, run_dir, *extra)
+        got = res.table.to_dict()
+        if len(got) != res.table.n_fis or got != want:
+            fail(f"cluster_obs ({name}): the FITable ({res.table.n_fis}) differs from "
+                 f"main's ({len(want)})")
+        # the skewed run plans before execute(), which counts only its own launches
+        if launches["multi_extension_supports"] <= 0 or launches["extension_supports"] <= 0 \
+                or (res.launches != launches if name == "healthy" else
+                    any(res.launches[k] > n for k, n in launches.items())):
+            fail(f"cluster_obs ({name}): B1 and B3 must launch: {launches}, run {res.launches}")
+        if "doctor:" not in text or "speedup waterfall (run)" not in text:
+            fail(f"cluster_obs ({name}): --doctor printed no report")
+        record = runlog.load_run(run_dir)
+        wf = speedup.from_run(record)
+        if wf is None or abs(sum(t.loss_x for t in wf.terms) - wf.gap_x) > 0.05:
+            fail(f"cluster_obs ({name}): the waterfall's terms do not sum to its gap: "
+                 f"{wf and [(t.name, t.loss_x) for t in wf.terms]} against "
+                 f"{wf and wf.gap_x}")
+        report = doctor.diagnose(record)
+        codes = {}
+        for cmd in ("summary", "critpath", "doctor"):
+            codes[cmd], _ = obs_report_run(cmd, run_dir, *(history if cmd == "doctor" else ()))
+        _, cp_json = obs_report_run("critpath", run_dir, "--format", "json")
+        table = [r["name"] for r in json.loads(cp_json)["table"]]
+        gate, _ = obs_report_run("doctor", run_dir, "--gate", *history)
+        if any(codes.values()) or "cluster/mine" not in table:
+            fail(f"cluster_obs ({name}): obs_report exit codes {codes}, critical path {table}")
+        findings = [(f["rule"], f["severity"]) for f in report["findings"]]
+        if name == "force_skew" and (("rebalance-not-engaging", "error") not in findings
+                                     or gate != 1):
+            fail(f"cluster_obs: --force-skew gave {findings}, doctor --gate exit {gate}")
+        rep = res.report
+        out[name] = {
+            "n_fis": res.table.n_fis, "equals_main": True, "wall_s": wall_s,
+            "phase_ms": rep.phase_ms, "rounds": rep.n_rounds,
+            "round_trips": [r.work_iters.tolist() for r in rep.rounds],
+            "round_mine_ms": [r.mine_ms for r in rep.rounds], "imbalance": rep.imbalance,
+            "donations": len(rep.donations), "estimation_error": rep.estimation_error(),
+            "waterfall": {"ideal_x": wf.ideal_x, "measured_x": wf.measured_x,
+                          "gap_x": wf.gap_x, "wall_ms": wf.wall_ms,
+                          "additivity_err": wf.additivity_error(),
+                          "terms": {t.name: {"loss_x": t.loss_x, "ms": t.ms}
+                                    for t in wf.terms}},
+            "findings": findings, "worst": report["worst"], "doctor_gate_exit": gate,
+            "critical_path": [(r["name"], r["self_ms"]) for r in
+                              json.loads(cp_json)["table"]],
+            "launches": launches}
+    emit({"phase": "cluster_obs", "nvidia_smi": smi, "db": THESIS_DB, "support": SUPPORT,
+          "P": 4, "K": 16, **out})
+    return out["healthy"]["launches"]
+
+
+RANK_RUNS = {"mine": "repro_torch.launch.mine", "cluster_mine": "repro_torch.launch.cluster_mine"}
+
+
+def phase_ranks(dev, want, smi, tmp):
+    """``mine`` and ``cluster_mine`` with ``-P 1 --devices 1`` on the thesis
+    database, each in a child process that runs its miner as a rank of a
+    one-rank NCCL group on the card (one H100 admits a world of one: NCCL
+    puts no two ranks on one GPU): ``backend=nccl``, and |F| and the FITable
+    (its SHA-256, ``--digest``) those of ``main``.  The two children run side
+    by side, their output in files under ``tmp``; each generates the database
+    itself."""
+    from repro_torch.core import fimi
+
+    digest = fimi.fitable_digest(want)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    argv = ["--db", THESIS_DB, "--support", str(SUPPORT), "-P", "1", "--devices", "1",
+            "--frontier", "16", "--digest", "--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    procs, walls = {}, {}
+    try:
+        for name, module in RANK_RUNS.items():
+            with open(f"{tmp}/ranks_{name}.out", "w") as out, \
+                    open(f"{tmp}/ranks_{name}.err", "w") as err:
+                procs[name] = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=ROOT,
+                                               env=env, stdout=out, stderr=err)
+        for name, proc in procs.items():
+            proc.wait(timeout=300)
+            walls[name] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    rows = {}
+    for name, proc in procs.items():
+        lines = Path(f"{tmp}/ranks_{name}.out").read_text().splitlines()
+        head = next((line for line in lines if line.startswith("|F| = ")), "")
+        launches = next((line for line in lines if line.startswith("kernel launches: ")), "")
+        if proc.returncode != 0 or f"backend={backend}" not in head \
+                or f"|F| = {len(want)} " not in head or f"FITable sha256={digest}" not in lines:
+            err = Path(f"{tmp}/ranks_{name}.err").read_text()[-2000:]
+            fail(f"ranks ({name}): exit {proc.returncode}, {head!r}, want |F| = {len(want)} "
+                 f"backend={backend} and the FITable of main; stderr: {err}")
+        counts = {k: int(n) for k, n in (kv.split("=") for kv in launches.split()[2:])}
+        if counts.get("multi_extension_supports", 0) <= 0 \
+                or counts.get("extension_supports", 0) <= 0:
+            fail(f"ranks ({name}): B1 and B3 must launch: {counts}")
+        rows[name] = {"exit": 0, "backend": backend, "n_fis": len(want), "equals_main": True,
+                      "wall_s": walls[name], "line": head, "launches": counts}
+    emit({"phase": "ranks", "nvidia_smi": smi, "db": THESIS_DB, "support": SUPPORT, "P": 1,
+          "devices": 1, "fitable_sha256": digest, **rows})
+    return {k: sum(row["launches"].get(k, 0) for row in rows.values()) for k in KERNELS}
+
+
 def phase_profile(torch, dev, dense, serve_run, store):
     """The main path, the cluster path with B1 and with B2, the store mine
     (its copies to the card among the device events) and the serve replay
@@ -1941,6 +2114,8 @@ def main() -> None:
                                      smi, store_dir.name)
     cluster_stream_launches = phase_stream_cluster(torch, dev, stream_res, stream_blocks, smi,
                                                    store_dir.name)
+    cluster_obs_launches = phase_cluster_obs(torch, dev, dense, want, smi, store_dir.name)
+    rank_launches = phase_ranks(dev, want, smi, store_dir.name)
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty
@@ -1978,6 +2153,8 @@ def main() -> None:
             summary[-1]["launches_store"] = store_launches[t["name"]]
             summary[-1]["launches_service"] = service_launches[t["name"]]
             summary[-1]["launches_stream_cluster"] = cluster_stream_launches[t["name"]]
+            summary[-1]["launches_cluster_obs"] = cluster_obs_launches[t["name"]]
+            summary[-1]["launches_ranks"] = rank_launches[t["name"]]
             if t["name"] == "block_itemset_supports":  # B5 over the store's blocks
                 summary[-1]["at_store_shape"] = {key: store_timing[key] for key in keys
                                                  if key in store_timing}

@@ -15,12 +15,18 @@ pipeline end to end::
     merge: all miners' FI buffers + frequent ancestors ──► one FITable
 
 The P miners run through :class:`~repro_torch.core.phases.LocalCollectives`
-on one device, the counterpart of the JAX package's ``vmap`` backend.  The
-JAX package pads each round's class table to ``P·chunk`` rows so that its
-phases compile once; PyTorch compiles nothing, so a round passes its real
-classes, and the exchange, the replication, the trips and the FITable are
-the same.  Donating a class re-runs the Phase-3 exchange for the round that
-mines it, so the result stays exact however many donations are made.
+on one device (backend ``local``, the counterpart of the JAX package's
+``vmap``) or through :class:`~repro_torch.core.phases.DistCollectives`, one
+miner a rank of a ``torch.distributed`` group (backend ``gloo`` or ``nccl``,
+the counterpart of ``shard_map``; ``launch/ranks.py`` sets it up).  Under
+ranks every rank plans alike, exchanges and mines its own miner, and gathers
+each round's trips and FIs, so the queues, the rebalancing and the result are
+the same on every rank.  The JAX package pads each round's class table to
+``P·chunk`` rows so that its phases compile once; PyTorch compiles nothing,
+so a round passes its real classes, and the exchange, the replication, the
+trips and the FITable are the same.  Donating a class re-runs the Phase-3
+exchange for the round that mines it, so the result stays exact however
+many donations are made.
 
 :func:`cluster_mine_fn` makes the executor the streaming miner's re-miner.
 """
@@ -41,6 +47,10 @@ from repro_torch.cluster import rebalance as rebalance_mod
 from repro_torch.core import bitmap as bm
 from repro_torch.core import eclat, phases
 from repro_torch.kernels import ops
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import progress as obs_progress
+from repro_torch.obs import speedup as speedup_mod
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,7 +120,7 @@ class ClusterReport:
     """What the executor observed, for the launcher to print."""
 
     P: int
-    backend: str                    # "local": P miners stacked on one device
+    backend: str                    # "local" (one device) | "gloo" | "nccl" (ranks)
     rounds: List[RoundStats]
     phase_ms: Dict[str, float]      # plan / exchange / mine / merge
     est_loads: np.ndarray           # float [P] — planner prediction
@@ -144,8 +154,9 @@ class ClusterReport:
         return float(np.abs(est / est.sum() - obs / obs.sum()).max())
 
     def snapshot(self) -> Dict[str, dict]:
-        """The report as ``{"counters": …, "gauges": …}`` under the JAX
-        package's ``cluster/*`` names."""
+        """The report as ``{"counters": …, "gauges": …, "histograms": …}``
+        under the JAX package's ``cluster/*`` names, with the speedup
+        waterfall's ``speedup/*`` gauges (:mod:`repro_torch.obs.speedup`)."""
         counters = {
             "cluster/donations": len(self.donations),
             "cluster/exchange_overflow": int(self.exchange_overflow),
@@ -163,11 +174,45 @@ class ClusterReport:
             gauges[f"cluster/shard{p}/est_load"] = float(self.est_loads[p])
             gauges[f"cluster/shard{p}/obs_load"] = float(self.observed_loads[p])
         for r in self.rounds:
+            # per-round detail the speedup waterfall's compile term needs
             gauges[f"cluster/round{r.round_index}/mine_ms"] = float(r.mine_ms)
-            gauges[f"cluster/round{r.round_index}/max_trips"] = (
-                float(np.max(r.work_iters)) if len(r.work_iters) else 0.0
-            )
-        return {"counters": counters, "gauges": gauges}
+            gauges[f"cluster/round{r.round_index}/max_trips"] = _max_trips(r)
+        hist = obs_metrics.Histogram("cluster/round_makespan_trips")
+        for r in self.rounds:
+            hist.record(_max_trips(r))
+        # every record with cluster gauges also carries its own waterfall
+        wf = speedup_mod.from_snapshot({"counters": counters, "gauges": gauges,
+                                        "histograms": {}})
+        if wf is not None:
+            gauges.update(wf.gauges())
+        return {"counters": counters, "gauges": gauges,
+                "histograms": {hist.name: hist.summary()}}
+
+    def emit(self, reg: Optional[obs_metrics.MetricsRegistry] = None) -> None:
+        """Publish this report into the (default: global) metrics registry."""
+        reg = reg if reg is not None else obs_metrics.registry()
+        snap = self.snapshot()
+        for name, v in snap["counters"].items():
+            reg.counter(name).inc(int(v))
+        for name, v in snap["gauges"].items():
+            reg.gauge(name).set(float(v))
+        h = reg.histogram("cluster/round_makespan_trips")
+        for r in self.rounds:
+            h.record(_max_trips(r))
+
+    def republish_gauges(self, reg: Optional[obs_metrics.MetricsRegistry] = None) -> None:
+        """Re-set the gauges alone (counters and the histogram would count
+        twice).  A launcher calls this after back-patching ``phase_ms`` with
+        work done outside :func:`execute` (off-disk planning, block-streamed
+        assembly), so the waterfall charges it to ``host_tail``, not to the
+        unexplained ``driver`` residual."""
+        reg = reg if reg is not None else obs_metrics.registry()
+        for name, v in self.snapshot()["gauges"].items():
+            reg.gauge(name).set(float(v))
+
+
+def _max_trips(r: RoundStats) -> float:
+    return float(np.max(r.work_iters)) if len(r.work_iters) else 0.0
 
 
 @dataclasses.dataclass
@@ -205,6 +250,8 @@ def execute(
     round_hook: Optional[Callable[[int], None]] = None,
     sample_idx: Optional[torch.Tensor] = None,
     reservoir_draws: Optional[torch.Tensor] = None,
+    progress_cb: Optional[Callable[[obs_progress.ProgressSnapshot], None]] = None,
+    coll: Optional[phases.Collectives] = None,
 ) -> ClusterResult:
     """Run the distributed pipeline; returns table + plan + telemetry.
 
@@ -219,30 +266,43 @@ def execute(
     plan and the donations from the restored ledger.  ``round_hook(r)`` is
     called after round ``r`` is checkpointed; a fault harness raises from it
     to simulate a death mid-run.
+
+    ``progress_cb`` receives a live :class:`ProgressSnapshot` after every
+    round, fed from the plan's estimated loads and each round's trips.
+    ``coll`` is the miners' collectives (default ``LocalCollectives(P)``);
+    under a ``DistCollectives`` ``tx_shards`` is the whole ``[P, T, IW]``
+    database or the rank's shard, only rank 0 writes checkpoints, and every
+    rank returns the same result.  The run ends by publishing its report
+    into the metrics registry (:meth:`ClusterReport.emit`).
     """
     dev = device_mod.resolve(device)
     launched_before = ops.kernel_launches()
     tx_shards = tx_shards.to(dev)
-    P, T, IW = tx_shards.shape
-    coll = phases.LocalCollectives(P)
+    coll = coll if coll is not None else phases.LocalCollectives(tx_shards.shape[0])
+    tx_shards = coll.local(tx_shards)
+    _, T, IW = tx_shards.shape
+    P, held = coll.P, coll.miners
     phase_ms = {"plan": 0.0, "exchange": 0.0, "mine": 0.0, "merge": 0.0}
 
     def since(t0: float) -> float:
         device_mod.synchronize(dev)
         return (time.perf_counter() - t0) * 1e3
 
+    tr = obs_trace.TRACER
     t0 = time.perf_counter()
-    if plan is None:
-        plan = planner_mod.plan(tx_shards, n_items, params.planner, seed=seed, device=dev,
-                                sample_idx=sample_idx, reservoir_draws=reservoir_draws)
-    phase_ms["plan"] = since(t0)
+    with tr.span("cluster/plan", P=P, backend=coll.backend):
+        if plan is None:
+            plan = planner_mod.plan(tx_shards, n_items, params.planner, seed=seed, device=dev,
+                                    sample_idx=sample_idx, reservoir_draws=reservoir_draws,
+                                    coll=coll)
+        phase_ms["plan"] = since(t0)
     classes = plan.classes
     est_sizes = plan.est_sizes
     queues = plan.shard_queues()
     chunk = _chunk_width(params, queues)
 
     cap = params.exchange_capacity or T
-    local_valid = torch.ones((P, T), dtype=torch.bool, device=dev)
+    local_valid = torch.ones((len(held), T), dtype=torch.bool, device=dev)
     A = plan.ancestor_masks.shape[0]
     anc_masks = torch.from_numpy(np.asarray(plan.ancestor_masks, bool)).to(dev)
     multi_support_fn = partial(ops.multi_extension_supports, use_mxu=params.use_mxu)
@@ -274,6 +334,12 @@ def execute(
             rounds = list(state.rounds)
             donations = list(state.donations)
 
+    progress = obs_progress.ProgressEstimator(plan.est_loads)
+    progress.start()
+    if r > 0:
+        # resumed mid-run: credit the restored rounds as one bulk update
+        progress.update(ledger.est_mined, ledger.observed)
+
     while any(queues) and r < params.max_rounds:
         take = [q[:chunk] for q in queues]
         queues = [q[chunk:] for q in queues]
@@ -285,30 +351,32 @@ def execute(
             torch.from_numpy(np.stack([classes[c].prefix for c in round_ids]))
         )
         t0 = time.perf_counter()
-        out3 = phases.phase3_exchange(
-            tx_shards, local_valid, prefix_packed, class_assign, coll=coll, capacity=cap,
-        )
-        phase_ms["exchange"] += since(t0)
+        with tr.span("cluster/exchange", round=r, classes=len(round_ids)):
+            out3 = phases.phase3_exchange(
+                tx_shards, local_valid, prefix_packed, class_assign, coll=coll, capacity=cap,
+            )
+            phase_ms["exchange"] += since(t0)
 
         # ---- Phase 4: mine this round's classes on the received slabs -----
         seed_prefix, seed_ext, seed_valid = planner_mod.pack_seeds(
             classes, take, n_items, chunk
         )
-        t0 = time.perf_counter()
-        out4 = phases.phase4_mine(
-            out3.slab, out3.slab_valid, tx_shards, local_valid,
-            torch.from_numpy(seed_prefix).to(dev),
-            torch.from_numpy(seed_ext).to(dev),
-            torch.from_numpy(seed_valid).to(dev),
-            anc_masks, plan.abs_minsup, coll=coll, n_items=n_items,
-            eclat_cfg=params.eclat, multi_support_fn=multi_support_fn,
-        )
-        for res in out4.results:
-            if res.n_out:
-                fi_masks.append(bm.to_reference(res.items[: res.n_out]))
-                fi_supports.append(res.supports[: res.n_out].cpu().numpy().astype(np.int64))
-        anc_supports = out4.prefix_supports.cpu().numpy().astype(np.int64)
-        mine_ms = since(t0)
+        mine_t0 = time.perf_counter()
+        with tr.span("cluster/mine", round=r, chunk=chunk):
+            out4 = phases.phase4_mine(
+                out3.slab, out3.slab_valid, tx_shards, local_valid,
+                torch.from_numpy(seed_prefix[held]).to(dev),
+                torch.from_numpy(seed_ext[held]).to(dev),
+                torch.from_numpy(seed_valid[held]).to(dev),
+                anc_masks, plan.abs_minsup, coll=coll, n_items=n_items,
+                eclat_cfg=params.eclat, multi_support_fn=multi_support_fn,
+            )
+            for res in out4.results:
+                if res.n_out:
+                    fi_masks.append(bm.to_reference(res.items[: res.n_out]))
+                    fi_supports.append(res.supports[: res.n_out].cpu().numpy().astype(np.int64))
+            anc_supports = out4.prefix_supports.cpu().numpy().astype(np.int64)
+            mine_ms = since(mine_t0)
         phase_ms["mine"] += mine_ms
 
         exchange_overflow += out3.overflow
@@ -320,6 +388,19 @@ def execute(
             [sum(max(float(est_sizes[c]), 1.0) for c in ids) for ids in take]
         )
         ledger.record_round(trips, est_mined)
+        snap = progress.update(est_mined, trips)
+        if progress_cb is not None:
+            progress_cb(snap)
+        if tr.enabled:
+            # modeled per-miner lanes: the miners run a round between two
+            # barriers, so miner p's lane is its trip share of the slowest
+            # miner's; the gaps between the lanes are the round's imbalance
+            t_max = max(float(trips.max()), 1.0)
+            for p in range(P):
+                tr.add_span("cluster/mine", mine_t0, mine_ms / 1e3 * float(trips[p]) / t_max,
+                            track=f"shard{p}",
+                            args={"round": r, "trips": int(trips[p]),
+                                  "classes": len(take[p]), "est_mined": float(est_mined[p])})
 
         moved: List[rebalance_mod.Donation] = []
         if params.rebalance and any(queues):
@@ -329,6 +410,9 @@ def execute(
                 max_donations=params.max_donations,
             )
             donations.extend(moved)
+            for d in moved:
+                tr.instant("cluster/donate", round=d.round_index, class_id=d.class_id,
+                           src=d.src, dst=d.dst)
         rounds.append(RoundStats(
             round_index=r,
             classes_mined=[len(ids) for ids in take],
@@ -339,7 +423,7 @@ def execute(
             mine_ms=mine_ms,
         ))
         r += 1
-        if checkpoint_dir:
+        if checkpoint_dir and coll.rank == 0:
             checkpoint_mod.save(
                 checkpoint_dir,
                 checkpoint_mod.RoundState(
@@ -361,6 +445,7 @@ def execute(
             round_hook(r - 1)
     if any(queues):
         raise RuntimeError(f"max_rounds={params.max_rounds} exhausted with classes still queued")
+    progress.finish()
 
     if params.strict and (exchange_overflow or mine_overflow):
         raise RuntimeError(
@@ -389,7 +474,7 @@ def execute(
 
     report = ClusterReport(
         P=P,
-        backend="local",
+        backend=coll.backend,
         rounds=rounds,
         phase_ms=phase_ms,
         est_loads=plan.est_loads,
@@ -398,8 +483,10 @@ def execute(
         exchange_overflow=exchange_overflow,
         mine_overflow=mine_overflow,
     )
-    launches = {k: n - launched_before[k] for k, n in ops.kernel_launches().items()}
-    return ClusterResult(table=table, plan=plan, report=report, launches=launches)
+    report.emit()
+    return ClusterResult(table=table, plan=plan, report=report,
+                         launches=coll.sum_counts({k: n - launched_before[k]
+                                                   for k, n in ops.kernel_launches().items()}))
 
 
 def _concat(parts: List[np.ndarray], empty: np.ndarray) -> np.ndarray:

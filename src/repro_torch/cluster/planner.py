@@ -21,6 +21,12 @@ The sample rows and the reservoir draws come from ``torch.Generator``s, or
 from tensors the caller hands in: torch cannot draw JAX's threefry numbers,
 so a test hands in the reference's draws to reproduce its plan.
 
+Every process draws the same sample indices, each held shard contributes
+the rows it owns, and the sum over the miners gathers D̃ (an all-reduce
+across ranks, under a :class:`~repro_torch.core.phases.DistCollectives`);
+the rest of the plan is host work that every rank does alike, so every rank
+holds the same plan.
+
 ``plan`` also takes an on-disk :class:`~repro_torch.store.store.TxStore`
 (``P`` required then): the Thm 6.1 sample is gathered off disk at the same
 row indices (``store.reader.sample_rows``), so the plan equals the in-RAM
@@ -133,6 +139,7 @@ def plan(
     sample_idx: Optional[torch.Tensor] = None,       # int[n_db] rows of D
     reservoir_draws: Optional[torch.Tensor] = None,  # int[≥ FIs streamed]
     P: Optional[int] = None,
+    coll: Optional[phases.Collectives] = None,
 ) -> MiningPlan:
     """Build the mining plan from a database sample (Phases 1–2).
 
@@ -142,10 +149,14 @@ def plan(
     from another, or from ``reservoir_draws[t - 1]``.  ``device`` defaults
     to CUDA.  With a :class:`TxStore`, ``P`` is required, ``n_items`` may be
     None, and the sample rows are gathered off disk at the same indices.
+    ``coll`` holds the miners (default: all of them here); under a
+    ``DistCollectives`` ``tx_shards`` is the whole database or the rank's
+    shard.
     """
     dev = device_mod.resolve(device)
     store = None
     if isinstance(tx_shards, TxStore):   # plan off disk
+        phases.require_local(coll, "planning")
         store = tx_shards
         if P is None:
             raise ValueError("P (shard count) is required when planning a TxStore")
@@ -154,7 +165,10 @@ def plan(
         T, IW = store.n_tx // P, store.n_words
     else:
         tx_shards = tx_shards.to(dev)
-        P, T, IW = tx_shards.shape
+        coll = coll if coll is not None else phases.LocalCollectives(tx_shards.shape[0])
+        tx_shards = coll.local(tx_shards)
+        _, T, IW = tx_shards.shape
+        P = coll.P
     n_tx = P * T
     abs_minsup = int(np.ceil(params.min_support_rel * n_tx))
 
@@ -162,13 +176,12 @@ def plan(
     n_db = params.n_db_sample or sampling.db_sample_size(params.eps_db, params.delta_db)
     n_db = min(n_db, n_tx)
     g_samp, g_mine = (device_mod.generator(dev, seed, stream) for stream in (0, 1))
-    if store is not None:   # the in-RAM path's draw, the rows off disk
-        sample_idx = bm.sample_indices(n_tx, n_db, generator=g_samp, idx=sample_idx,
-                                       device=dev)
+    sample_idx = bm.sample_indices(n_tx, n_db, generator=g_samp, idx=sample_idx,
+                                   device=dev).to(dev)
+    if store is not None:   # the rows off disk
         rows = store_reader.sample_rows(store, sample_idx, device=dev)
-    else:
-        rows = bm.sample_transactions(tx_shards.reshape(n_tx, IW), n_db,
-                                      generator=g_samp, idx=sample_idx)
+    else:   # the same indices on every rank, each row from the miner holding it
+        rows = _gather_rows(coll, tx_shards, sample_idx)
     sample_bitdb = bm.rebuild_vertical(rows, n_items, n_db)
     sample_minsup = int(np.ceil(params.min_support_rel * n_db))
     eps_eff = math.sqrt(math.log(2.0 / params.delta_db) / (2.0 * n_db))
@@ -256,6 +269,21 @@ def plan(
         sample_item_rel=item_rel,
         eps_db_effective=eps_eff,
     )
+
+
+def _gather_rows(coll: phases.Collectives, tx_shards: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` (global, shard order) of the database whose held shards
+    are ``tx_shards``: each held shard fills the rows it owns, the rest are
+    0, and the sum over the miners leaves every row exactly once."""
+    _, T, IW = tx_shards.shape
+    owner, row = idx // T, idx % T
+    part = torch.zeros((len(coll.miners), idx.shape[0], IW), dtype=tx_shards.dtype,
+                       device=tx_shards.device)
+    for j, p in enumerate(coll.miners):
+        mine = owner == p
+        part[j, mine] = tx_shards[j][row[mine]]
+    return coll.psum(part).to(tx_shards.dtype)
 
 
 def pack_seeds(

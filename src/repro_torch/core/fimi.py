@@ -1,6 +1,10 @@
 """Parallel-FIMI entry point: Methods 1–3 of the thesis (§8.5).
 
-``run`` executes the four phases over P miners stacked on one device:
+``run`` executes the four phases over P miners, all stacked on one device
+(:class:`~repro_torch.core.phases.LocalCollectives`, the default) or one a
+rank of a ``torch.distributed`` group
+(:class:`~repro_torch.core.phases.DistCollectives`, set up by
+``launch/ranks.py``):
 
   1. all-gathered DB sample D̃, then the FI sample F̃s by one of three
      Phase-1 methods (``FimiParams.variant``):
@@ -35,8 +39,9 @@ Phase 4 (``FimiResult.progress``), and the ``fimi/*`` run metrics.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,6 +107,7 @@ class FimiResult:
     launches: Dict[str, int]            # kernel launches of this run, by kernel
     fi_dict: Optional[Dict] = None      # materialized {frozenset: supp}
     progress: Optional[obs_progress.ProgressSnapshot] = None  # final snapshot
+    backend: str = "local"              # "local" | "gloo" | "nccl" (ranks)
 
 
 def run(
@@ -119,8 +125,16 @@ def run(
     P: Optional[int] = None,
     host_budget_blocks: int = 2,
     reader: Optional[store_reader.BlockReader] = None,
+    coll: Optional[phases.Collectives] = None,
 ) -> FimiResult:
     """Mine ``tx_shards`` through the four phases; ``device`` defaults to CUDA.
+
+    ``coll`` is the miners' collectives, the counterpart of the reference's
+    ``spmd=``/``mesh=``: ``LocalCollectives(P)`` (the default, P from
+    ``tx_shards``) or a ``DistCollectives`` of one miner a rank, to which
+    ``tx_shards`` may be the whole ``[P, T, IW]`` database (each rank keeps
+    its own shard) or the rank's ``[1, T, IW]`` shard.  Phase 2 runs on the
+    host of every rank alike, and every rank returns the same result.
 
     ``tx_shards`` may be a :class:`TxStore`: then ``P`` is required
     (``ValueError`` without it), ``n_items`` may be None, and the shards are
@@ -147,6 +161,7 @@ def run(
     launched_before = ops.kernel_launches()
     phase_s: Dict[str, float] = {}
     if isinstance(tx_shards, TxStore):   # mine out of core
+        phases.require_local(coll, "mining")
         if P is None:
             raise ValueError("P (miner count) is required when mining a TxStore")
         if n_items is None:
@@ -160,8 +175,10 @@ def run(
         device_mod.synchronize(dev)
         phase_s["assemble_store"] = time.perf_counter() - t0
     tx_shards = tx_shards.to(dev)
-    P, T, IW = tx_shards.shape
-    coll = phases.LocalCollectives(P)
+    coll = coll if coll is not None else phases.LocalCollectives(tx_shards.shape[0])
+    tx_shards = coll.local(tx_shards)
+    _, T, IW = tx_shards.shape
+    P = coll.P
     n_tx = P * T
     abs_minsup = int(np.ceil(params.min_support_rel * n_tx))
 
@@ -187,7 +204,7 @@ def run(
             n_sample_per_proc=per_proc,
             reservoir_size=n_fs if params.variant == "reservoir" else 1,
             eclat_cfg=params.eclat, mfi_cfg=params.mfi, variant=variant_dev,
-            generators=[device_mod.generator(dev, seed, p) for p in range(P)],
+            generators=[device_mod.generator(dev, seed, p) for p in coll.miners],
             sample_idx=sample_idx, reservoir_draws=reservoir_draws,
         ))
     n_samp = out1.sample_db.shape[0]
@@ -261,7 +278,7 @@ def run(
 
     # ---------------- Phase 3 ------------------------------------------------
     pref_packed, _ = pbec.classes_to_packed(classes)
-    local_valid = torch.ones((P, T), dtype=torch.bool, device=dev)
+    local_valid = torch.ones((len(coll.miners), T), dtype=torch.bool, device=dev)
     with tr.span("fimi/phase3_exchange", C=len(classes)):
         out3 = tr.sync(phases.phase3_exchange(
             tx_shards, local_valid, pref_packed, assignment, coll=coll,
@@ -279,6 +296,7 @@ def run(
             seed_prefix[p, j] = classes[cid].prefix
             seed_ext[p, j] = classes[cid].ext
             seed_valid[p, j] = True
+    held = coll.miners
     ancestor_masks, anc_list = pbec.ancestor_closure(classes, n_items)
 
     progress = obs_progress.ProgressEstimator(est_loads)
@@ -286,9 +304,9 @@ def run(
     with tr.span("fimi/phase4_mine", Cmax=Cmax, A=ancestor_masks.shape[0]):
         out4 = tr.sync(phases.phase4_mine(
             out3.slab, out3.slab_valid, tx_shards, local_valid,
-            torch.from_numpy(seed_prefix).to(dev),
-            torch.from_numpy(seed_ext).to(dev),
-            torch.from_numpy(seed_valid).to(dev),
+            torch.from_numpy(seed_prefix[held]).to(dev),
+            torch.from_numpy(seed_ext[held]).to(dev),
+            torch.from_numpy(seed_valid[held]).to(dev),
             torch.from_numpy(ancestor_masks).to(dev),
             abs_minsup, coll=coll, n_items=n_items, eclat_cfg=params.eclat,
         ))
@@ -322,8 +340,10 @@ def run(
         n_mfi=n_mfi,
         phase4_overflow=np.array([r.stack_overflow for r in out4.results]),
         phase_s=phase_s,
-        launches={k: n - launched_before[k] for k, n in ops.kernel_launches().items()},
+        launches=coll.sum_counts(
+            {k: n - launched_before[k] for k, n in ops.kernel_launches().items()}),
         progress=final_progress,
+        backend=coll.backend,
     )
     _emit_run_metrics(result, params, P)
     if materialize:
@@ -386,12 +406,25 @@ def materialize_fis(result: FimiResult, n_items: int, abs_minsup: int) -> Dict:
     return out
 
 
-def shard_db(db_dense: np.ndarray, P: int, device: str | torch.device | None = None) -> torch.Tensor:
+def fitable_digest(fis: Dict[frozenset, int]) -> str:
+    """SHA-256 of a FITable ``{frozenset: support}``, one line an itemset
+    (its items ascending, then its support) in sorted order: equal tables,
+    equal digests, whichever process or backend mined them."""
+    lines = sorted(",".join(map(str, sorted(s))) + f":{v}" for s, v in fis.items())
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
+
+
+def shard_db(db_dense: np.ndarray, P: int, device: str | torch.device | None = None,
+             miners: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Split a dense bool DB row-wise into P packed shards ``int32[P, T, IW]``
     on ``device`` (CUDA unless the caller names another); the last
-    ``n_tx mod P`` rows are dropped, as in the reference."""
+    ``n_tx mod P`` rows are dropped, as in the reference.  With ``miners``
+    only those shards go to the device, ``int32[len(miners), T, IW]``: a
+    rank passes its collectives' ``miners`` and holds its own shard alone."""
     dev = device_mod.resolve(device)
     n_tx, n_items = db_dense.shape
     T = n_tx // P
-    rows = torch.from_numpy(np.ascontiguousarray(db_dense[: T * P])).to(dev)
-    return bm.pack_bool(rows.reshape(P, T, n_items))
+    rows = db_dense[: T * P].reshape(P, T, n_items)
+    if miners is not None:
+        rows = rows[list(miners)]
+    return bm.pack_bool(torch.from_numpy(np.ascontiguousarray(rows)).to(dev))

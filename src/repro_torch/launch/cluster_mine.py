@@ -1,8 +1,10 @@
 """Distributed mining launcher of the port: the cluster executor end to end.
 
-Runs planner → exchange → miner rounds → rebalance over P miners on one
-device, on the card unless ``--device cpu`` is given (without CUDA and
-without that flag it raises), and reports:
+Runs planner → exchange → miner rounds → rebalance over P miners, on the
+card unless ``--device cpu`` is given (without CUDA and without that flag it
+raises): on one device, or with ``--devices N`` (N ≥ P) as P rank processes,
+one miner a rank (``launch/ranks.py``: NCCL on the card, gloo on the CPU;
+rank 0 prints and records).  It reports:
 
   * per-phase time (plan / exchange / mine / merge),
   * load imbalance (observed DFS trips, max/mean) and the planner's
@@ -15,16 +17,29 @@ without that flag it raises), and reports:
     after every round; ``--resume`` restarts from the latest checkpoint,
     bit-exact with an unbroken run; ``--kill-after-round R`` exits 0 right
     after round R's checkpoint,
-  * the kernel launches of the run.
+  * the kernel launches of the run, summed over the ranks,
+  * a live progress line after every round (sample-estimated completion,
+    barrier-aware ETA, worst straggler).
+
+``--trace DIR`` / ``--metrics DIR`` / ``--profile`` record the run (the
+reference's run record: each round an event, the cluster gauges, the speedup
+waterfall's ``speedup/*`` gauges, the spans ``cluster/plan``,
+``cluster/exchange``, ``cluster/mine`` and a modeled lane a miner);
+``--doctor`` diagnoses it at exit.  Read a record with
+``python -m repro_torch.launch.obs_report``.
 
 ``--store DIR`` / ``--dataset F.dat`` mine out of core, as in the JAX
 launcher: the plan is sampled off disk (``planner.plan`` on the store) and
 the shards are assembled on the card block by block through the
-double-buffered reader (``phase_ms["assemble"]``).
+double-buffered reader (``phase_ms["assemble"]``); not with ``--devices``.
+Under ``--devices`` the ``--curve`` points and the ``--parity`` reference
+run on rank 0 alone, on its device.
 
   python -m repro_torch.launch.cluster_mine --db T500I0.1P50PL10TL40 --support 0.2 -P 4
   python -m repro_torch.launch.cluster_mine --db T1I0.032P20PL6TL10 --support 0.08 \\
       --device cpu --parity [--checkpoint DIR [--resume | --kill-after-round R]]
+  python -m repro_torch.launch.cluster_mine --db T1I0.032P20PL6TL10 --support 0.08 \
+      --device cpu -P 4 --devices 4 --trace RUN --doctor
   python -m repro_torch.launch.cluster_mine --dataset examples/retail_tiny.dat \\
       --support 0.2 -P 2 --parity --device cpu
 """
@@ -41,7 +56,9 @@ import numpy as np
 from repro_torch import cluster
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
+from repro_torch.launch import ranks
 from repro_torch.launch.data_source import resolve_source
+from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.store.reader import to_device_shards
 from repro_torch.store.store import TxStore
 
@@ -77,14 +94,15 @@ def cluster_params(args, n_tx: int, use_mxu: bool = False) -> cluster.ClusterPar
 
 
 def run_once(dense: Optional[np.ndarray], P: int, args, dev, use_mxu: bool = False,
-             store: Optional[TxStore] = None):
+             store: Optional[TxStore] = None, coll=None, progress_cb=None):
     """One executor run at P miners; returns ``(result, wall seconds)``.
 
     ``use_mxu`` is ``ClusterParams.use_mxu`` (Phase 4 on kernel B2); the
     command line has no flag for it, as the JAX launcher has none.  With
     ``store`` set the plan is computed off disk and the shards are
     assembled block by block through the reader; ``dense`` is used only
-    otherwise.
+    otherwise.  ``coll`` is the miners' collectives (default: all P on
+    ``dev``), ``progress_cb`` gets the executor's snapshot after every round.
     """
     n_tx, n_items = (store.n_tx, store.n_items) if store is not None else dense.shape
     params = cluster_params(args, n_tx, use_mxu)
@@ -97,20 +115,24 @@ def run_once(dense: Optional[np.ndarray], P: int, args, dev, use_mxu: bool = Fal
         device_mod.synchronize(dev)
         phase_ms = {"plan": (t1 - t0) * 1e3, "assemble": (time.perf_counter() - t1) * 1e3}
     else:
-        shards = fimi.shard_db(dense, P, dev)
+        shards = fimi.shard_db(dense, P, dev, miners=coll.miners if coll is not None else None)
         if args.force_skew:
-            plan = cluster.plan(shards, n_items, params.planner, seed=args.seed, device=dev)
+            plan = cluster.plan(shards, n_items, params.planner, seed=args.seed, device=dev,
+                                coll=coll)
             phase_ms = {"plan": (time.perf_counter() - t0) * 1e3}
     if args.force_skew:
         plan = _skew_plan(plan)
     res = cluster.execute(
         shards, n_items, params, seed=args.seed, device=dev, plan=plan,
         checkpoint_dir=args.checkpoint or None, resume=args.resume,
-        round_hook=_kill_hook(args.kill_after_round),
+        round_hook=_kill_hook(args.kill_after_round), progress_cb=progress_cb, coll=coll,
     )
     # execute() saw a precomputed plan: charge the planning (and the
-    # block-streamed assembly) where they ran
-    res.report.phase_ms.update(phase_ms)
+    # block-streamed assembly) where they ran, and re-set the gauges so the
+    # waterfall counts them as host work
+    if phase_ms:
+        res.report.phase_ms.update(phase_ms)
+        res.report.republish_gauges()
     device_mod.synchronize(dev)
     return res, time.perf_counter() - t0
 
@@ -180,6 +202,11 @@ def build_parser() -> argparse.ArgumentParser:
                     help="store block size (rows) when spilling/ingesting")
     ap.add_argument("--support", type=float, default=0.1)
     ap.add_argument("-P", type=int, default=4)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="run the P miners as P rank processes when N >= P "
+                         "(NCCL on the card, gloo with --device cpu)")
+    ap.add_argument("--digest", action="store_true",
+                    help="print the FITable's SHA-256")
     ap.add_argument("--scheduler", default="auto", choices=["auto", "lpt", "repl_min"])
     ap.add_argument("--alpha", type=float, default=0.5)
     ap.add_argument("--frontier", type=int, default=16,
@@ -204,12 +231,19 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulate a crash: exit 0 right after round R's checkpoint")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    add_obs_flags(ap)
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> cluster.ClusterResult:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[cluster.ClusterResult]:
     args = build_parser().parse_args(argv)
     dev = device_mod.resolve(args.device)
+    coll = ranks.from_flags("repro_torch.launch.cluster_mine", argv, args.devices, args.P, dev,
+                            store=bool(args.store or args.dataset))
+    if coll is not None:
+        dev = coll.device
+    lead = coll is None or coll.rank == 0
+    obs = start_session(args, "cluster_mine") if lead else None
 
     t0 = time.perf_counter()
     store, dense, src = resolve_source(args.dataset, args.store, args.db,
@@ -223,8 +257,27 @@ def main(argv: Optional[Sequence[str]] = None) -> cluster.ClusterResult:
         print(f"store: {store.n_blocks} blocks x <= {store.block_tx} tx "
               f"({store.total_bytes} packed bytes; plan sampled off-disk)", flush=True)
 
-    res, wall = run_once(dense, args.P, args, dev, store=store)
+    # the live line: sample-estimated completion, barrier-aware ETA and the
+    # worst straggler, at every round boundary
+    res, wall = run_once(dense, args.P, args, dev, store=store, coll=coll,
+                         progress_cb=lambda s: print("  " + s.line(), flush=True))
     report(res, wall)
+    if args.digest:
+        print(f"FITable sha256={fimi.fitable_digest(res.table.to_dict())}", flush=True)
+    rep = res.report
+    if obs:
+        for r in rep.rounds:
+            obs.event("round", index=r.round_index, classes_mined=r.classes_mined,
+                      work_iters=r.work_iters.tolist(), replication=r.replication,
+                      donations=len(r.donations))
+        obs.finish(n_fis=res.table.n_fis, mine_wall_s=wall, rounds=rep.n_rounds,
+                   backend=rep.backend, imbalance=rep.imbalance,
+                   makespan_trips=rep.makespan_trips,
+                   estimation_error=rep.estimation_error())
+    if coll is not None:
+        ranks.finish()
+        if not lead:
+            return res
 
     if args.curve:
         counts = [int(c) for c in args.curve.split(",") if c]

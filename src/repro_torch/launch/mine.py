@@ -1,6 +1,12 @@
-"""Parallel-FIMI launcher of the port: mine a database over P miners on one
-device, with the Phase-1 method ``--variant`` names (``seq``, ``par`` or
-``reservoir``, the thesis' Methods 1–3; the default is ``reservoir``).
+"""Parallel-FIMI launcher of the port: mine a database over P miners, with
+the Phase-1 method ``--variant`` names (``seq``, ``par`` or ``reservoir``,
+the thesis' Methods 1–3; the default is ``reservoir``).
+
+``--devices N`` with N ≥ P runs the miners as P rank processes, one miner a
+rank (``launch/ranks.py``; NCCL on the card, rank r on ``cuda:r``, gloo with
+``--device cpu``); rank 0 prints and records.  With N < P (the default N = 0)
+the P miners share one device.  ``--digest`` prints the FITable's SHA-256, to
+compare runs across processes.
 
 Three data sources, as in the JAX launcher:
 
@@ -29,6 +35,8 @@ trace.  Without them nothing is recorded.
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 \
       --scheduler repl_min --trace RUN --profile
   python -m repro_torch.launch.mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu
+  python -m repro_torch.launch.mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu \
+      -P 4 --devices 4                      # four gloo ranks
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 \
       --store DIR --blocktx 65536 --parity
   python -m repro_torch.launch.mine --dataset examples/retail_tiny.dat \
@@ -46,6 +54,7 @@ import numpy as np
 
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
+from repro_torch.launch import ranks
 from repro_torch.launch.data_source import resolve_source
 from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.store.reader import BlockReader
@@ -65,15 +74,17 @@ def mine_params(support: float, n_tx: int, frontier: int, scheduler: str = "lpt"
 def mine_dense(dense: np.ndarray, *, support: float, P: int = 4, frontier: int = 16,
                scheduler: str = "lpt", alpha: float = 0.5, seed: int = 0,
                device: Optional[str] = None, materialize: bool = False,
-               variant: str = "reservoir"):
-    """Shard, mine and report one dense database; returns ``(result, wall_s)``."""
+               variant: str = "reservoir", coll=None):
+    """Shard, mine and report one dense database; returns ``(result, wall_s)``.
+    ``coll`` is the miners' collectives (default: all P on ``device``)."""
     dev = device_mod.resolve(device)
     n_tx = dense.shape[0]
     params = mine_params(support, n_tx, frontier, scheduler, alpha, variant)
     t0 = time.perf_counter()
     res = fimi.run(
-        fimi.shard_db(dense, P, dev), dense.shape[1], params,
-        seed=seed, device=dev, materialize=materialize,
+        fimi.shard_db(dense, P, dev, miners=coll.miners if coll is not None else None),
+        dense.shape[1], params,
+        seed=seed, device=dev, materialize=materialize, coll=coll,
     )
     device_mod.synchronize(dev)
     return res, time.perf_counter() - t0
@@ -108,7 +119,7 @@ def parity(got: dict, want: dict) -> bool:
 
 def report(res: fimi.FimiResult, wall_s: float) -> None:
     w = res.work_iters.astype(float)
-    print(f"|F| = {res.n_fis}  in {wall_s:.2f}s")
+    print(f"|F| = {res.n_fis}  in {wall_s:.2f}s  backend={res.backend}")
     print(f"classes={len(res.classes)}  replication={res.replication:.4f}  "
           f"exchange_overflow={res.exchange_overflow}")
     print(f"phase-4 DFS trips per miner: {res.work_iters.tolist()}  "
@@ -146,6 +157,11 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--variant", default="reservoir", choices=["seq", "par", "reservoir"],
                     help="Phase-1 method: the thesis' Methods 1-3")
     ap.add_argument("-P", type=int, default=4)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="run the P miners as P rank processes when N >= P "
+                         "(NCCL on the card, gloo with --device cpu)")
+    ap.add_argument("--digest", action="store_true",
+                    help="print the FITable's SHA-256")
     ap.add_argument("--frontier", type=int, default=16,
                     help="DFS nodes mined per trip (K)")
     ap.add_argument("--scheduler", default="lpt", choices=["lpt", "repl_min"])
@@ -155,7 +171,11 @@ def main(argv: Optional[Sequence[str]] = None):
     add_obs_flags(ap)
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
-    obs = start_session(args, "mine")
+    coll = ranks.from_flags("repro_torch.launch.mine", argv, args.devices, args.P, dev,
+                            store=bool(args.store or args.dataset))
+    if coll is not None:
+        dev = coll.device
+    obs = start_session(args, "mine") if coll is None or coll.rank == 0 else None
 
     t0 = time.perf_counter()
     store, dense, src = resolve_source(args.dataset, args.store, args.db,
@@ -168,6 +188,7 @@ def main(argv: Optional[Sequence[str]] = None):
     kw = dict(support=args.support, P=args.P, frontier=args.frontier,
               scheduler=args.scheduler, alpha=args.alpha, seed=args.seed, device=dev,
               variant=args.variant)
+    materialize = args.parity or args.digest
     if store is not None:
         reader = BlockReader(store, args.budget_blocks, device=dev)
         print(f"store: {store.n_blocks} blocks x <= {store.block_tx} tx "
@@ -175,10 +196,12 @@ def main(argv: Optional[Sequence[str]] = None):
               f"host budget = {args.budget_blocks} blocks ({reader.budget_bytes} bytes)")
         # the mine's own block stream is the residency measurement: fimi.run
         # assembles the shards through this reader (one pass, no extra I/O)
-        res, wall_s = mine_store(store, reader=reader, materialize=args.parity, **kw)
+        res, wall_s = mine_store(store, reader=reader, materialize=materialize, **kw)
     else:
-        res, wall_s = mine_dense(dense, materialize=args.parity, **kw)
+        res, wall_s = mine_dense(dense, materialize=materialize, coll=coll, **kw)
     report(res, wall_s)
+    if args.digest:
+        print(f"FITable sha256={fimi.fitable_digest(res.fi_dict)}", flush=True)
     if store is not None:
         print(f"streamed host high-water: {reader.peak_host_bytes} bytes "
               f"(budget {reader.budget_bytes})")
@@ -205,6 +228,8 @@ def main(argv: Optional[Sequence[str]] = None):
               + (f", bit-exact supports; store {store.total_bytes}B > "
                  f"host budget {reader.budget_bytes}B)" if out_of_core else ")"),
               flush=True)
+    if coll is not None:
+        ranks.finish()
     return res
 
 

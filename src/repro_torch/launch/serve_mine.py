@@ -13,6 +13,10 @@ of distinct queries per kind (support lookups, basket → rules, itemset →
 supersets) drawn with a Zipf-tilted popularity from numpy's generator, so
 one FITable gives one query stream in either package.
 
+``--devices N`` with N ≥ P mines across P rank processes, one miner a rank
+(``launch/ranks.py``: NCCL on the card, gloo with ``--device cpu``); rank 0
+then builds the indexes and serves alone.
+
   python -m repro_torch.launch.serve_mine --db T500I0.1P50PL10TL40 --support 0.2
   python -m repro_torch.launch.serve_mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu
 """
@@ -29,7 +33,7 @@ from repro_torch import device as device_mod
 from repro_torch.core.rules import format_rule, pack_itemsets
 from repro_torch.data.ibm_gen import generate_dense, params_from_name
 from repro_torch.kernels import ops
-from repro_torch.launch import mine
+from repro_torch.launch import mine, ranks
 from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.serve import QueryCache, QueryEngine
 from repro_torch.serve.cache import query_key
@@ -149,10 +153,12 @@ class ServeRun:
     launches: Dict[str, int]        # kernel launches of the warm and the replay
 
 
-def run(dense: np.ndarray, args, device, obs=None) -> ServeRun:
+def run(dense: np.ndarray, args, device, obs=None, coll=None) -> Optional[ServeRun]:
     """Mine ``dense``, build the indexes, warm and replay the workload;
     ``obs`` (a :func:`start_session` session) gets the ``served`` event and
-    the sealed record."""
+    the sealed record.  With ``coll`` (a rank's collectives) the mine runs
+    across the ranks and only rank 0 goes on to serve; the others return
+    None."""
     dev = device_mod.resolve(device)
     n_tx, n_items = dense.shape
     print(f"mine: db={args.db} |D|={n_tx} |B|={n_items} sup={args.support} "
@@ -160,9 +166,14 @@ def run(dense: np.ndarray, args, device, obs=None) -> ServeRun:
           flush=True)
     res, mine_s = mine.mine_dense(dense, support=args.support, P=args.P,
                                   frontier=args.frontier, seed=args.seed,
-                                  device=dev, materialize=True, variant=args.variant)
+                                  device=dev, materialize=True, variant=args.variant,
+                                  coll=coll)
     fis = res.fi_dict
-    print(f"mine: |F| = {len(fis)} in {mine_s:.2f}s")
+    print(f"mine: |F| = {len(fis)} in {mine_s:.2f}s  backend={res.backend}")
+    if coll is not None:
+        ranks.finish()
+        if coll.rank != 0:
+            return None
 
     # ---- index + rules ------------------------------------------------------
     t0 = time.perf_counter()
@@ -236,6 +247,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--variant", default="reservoir", choices=["seq", "par", "reservoir"],
                     help="Phase-1 method: the thesis' Methods 1-3")
     ap.add_argument("-P", type=int, default=4)
+    ap.add_argument("--devices", type=int, default=0,
+                    help="mine across P rank processes when N >= P (NCCL on "
+                         "the card, gloo with --device cpu); rank 0 serves")
     ap.add_argument("--frontier", type=int, default=16,
                     help="DFS nodes mined per trip (K)")
     ap.add_argument("--queries", type=int, default=1024)
@@ -253,12 +267,15 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> ServeRun:
+def main(argv: Optional[Sequence[str]] = None) -> Optional[ServeRun]:
     args = build_parser().parse_args(argv)
     dev = device_mod.resolve(args.device)
-    obs = start_session(args, "serve_mine")
+    coll = ranks.from_flags("repro_torch.launch.serve_mine", argv, args.devices, args.P, dev)
+    if coll is not None:
+        dev = coll.device
+    obs = start_session(args, "serve_mine") if coll is None or coll.rank == 0 else None
     dense = generate_dense(params_from_name(args.db, seed=args.seed))
-    return run(dense, args, dev, obs=obs)
+    return run(dense, args, dev, obs=obs, coll=coll)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,9 @@
 """Observability of the port: metrics registry, span tracing, run records,
-the kernel profiler, the progress estimator, the serving tier's SLO windows
-and the perf history.
+the kernel profiler, the progress estimator, the serving tier's SLO windows,
+the perf history and the diagnosis layer.
 
 Own copies of the JAX package's ``obs`` modules, with the same behaviour and
-the same on-disk record, so the reference's ``launch/obs_report.py`` reads a
+the same on-disk record, so either package's ``launch/obs_report.py`` reads a
 run of either package:
 
   * :mod:`repro_torch.obs.metrics`  — counters / gauges / histograms, one
@@ -13,8 +13,8 @@ run of either package:
   * :mod:`repro_torch.obs.runlog`   — per-run manifest + JSONL events +
     metrics snapshot;
   * :mod:`repro_torch.obs.session`  — the launchers' ``--trace`` /
-    ``--metrics`` / ``--profile`` / ``--torch-profile`` glue (atexit and
-    SIGTERM partial flush);
+    ``--metrics`` / ``--profile`` / ``--torch-profile`` / ``--doctor`` glue
+    (atexit and SIGTERM partial flush);
   * :mod:`repro_torch.obs.machine`  — the machine constants (the H100 SXM,
     the host) that the profiler and ``chip_smoke.py``'s bounds price with;
   * :mod:`repro_torch.obs.profile`  — the kernel profiler: per-family
@@ -25,31 +25,43 @@ run of either package:
   * :mod:`repro_torch.obs.perfdb`   — the stamped perf history
     (``BENCH_torch_HISTORY.jsonl``), its trends and regression check;
   * :mod:`repro_torch.obs.progress` — the sample-grounded progress/ETA
-    estimator.
+    estimator;
+  * :mod:`repro_torch.obs.critpath` — span-DAG reconstruction over a run
+    record's ``trace.json``: critical path + exclusive self-time;
+  * :mod:`repro_torch.obs.speedup`  — the additive speedup-loss waterfall
+    (imbalance / Thm 6.1 estimation error / exchange / warm-up / host);
+  * :mod:`repro_torch.obs.doctor`   — the rules engine turning snapshot +
+    critical path + waterfall into ranked findings with evidence keys.
+
+The names below are resolved at first use, so importing one stdlib-only
+module of this package (``critpath``, ``speedup``, ``doctor``, ``perfdb``,
+``runlog``: what ``launch/obs_report.py`` reads with) does not import torch.
 """
-from repro_torch.obs.machine import (  # noqa: F401
-    CPU_HOST,
-    H100_SXM,
-    MachineModel,
-    machine_for_device,
-)
-from repro_torch.obs.metrics import (  # noqa: F401
-    Counter,
-    Gauge,
-    Histogram,
-    MetricsRegistry,
-    registry,
-    snapshot,
-)
-from repro_torch.obs.perfdb import check_regressions, trends  # noqa: F401
-from repro_torch.obs.profile import KernelProfiler, cost_model, profiler  # noqa: F401
-from repro_torch.obs.progress import ProgressEstimator, ProgressSnapshot  # noqa: F401
-from repro_torch.obs.runlog import RunLog, load_run  # noqa: F401
-from repro_torch.obs.slo import (  # noqa: F401
-    SLOPolicy,
-    SLOStatus,
-    SLOTracker,
-    WindowedCounter,
-    WindowedHistogram,
-)
-from repro_torch.obs.trace import TRACER, Tracer, tracer  # noqa: F401
+import importlib
+
+_EXPORTS = {
+    "SpanDag": "critpath", "critical_path": "critpath",
+    "Finding": "doctor", "Thresholds": "doctor", "diagnose": "doctor",
+    "CPU_HOST": "machine", "H100_SXM": "machine", "MachineModel": "machine",
+    "machine_for_device": "machine",
+    "Counter": "metrics", "Gauge": "metrics", "Histogram": "metrics",
+    "MetricsRegistry": "metrics", "registry": "metrics", "snapshot": "metrics",
+    "check_regressions": "perfdb", "trends": "perfdb",
+    "KernelProfiler": "profile", "cost_model": "profile", "profiler": "profile",
+    "ProgressEstimator": "progress", "ProgressSnapshot": "progress",
+    "RunLog": "runlog", "load_run": "runlog",
+    "SLOPolicy": "slo", "SLOStatus": "slo", "SLOTracker": "slo",
+    "WindowedCounter": "slo", "WindowedHistogram": "slo",
+    "LossTerm": "speedup", "Waterfall": "speedup",
+    "TRACER": "trace", "Tracer": "trace", "tracer": "trace",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"), name)
+    globals()[name] = value
+    return value

@@ -16,7 +16,10 @@ into the run-record contract through two calls::
 :mod:`repro_torch.obs.runlog`'s.  ``--profile`` enables the kernel profiler
 and publishes its attribution into the record.  ``--torch-profile DIR``
 captures a ``torch.profiler`` trace of the run (the counterpart of the
-reference's ``--jax-profile``).
+reference's ``--jax-profile``).  ``--doctor`` diagnoses the sealed record at
+exit and prints the report (:mod:`repro_torch.obs.doctor`); it implies
+tracing, and without ``--trace`` / ``--metrics`` it records to a temporary
+directory.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import argparse
 import atexit
 import os
 import signal
+import tempfile
 import threading
 from typing import Optional
 
@@ -50,6 +54,11 @@ def add_obs_flags(ap: argparse.ArgumentParser) -> None:
                    help="enable the kernel profiler: per-family measured-vs-"
                         "modeled attribution published into the run record "
                         "(needs --trace or --metrics)")
+    g.add_argument("--doctor", action="store_true",
+                   help="diagnose this run at exit: critical path, speedup "
+                        "waterfall, and the doctor's ranked findings "
+                        "(records to a temp dir unless --trace/--metrics "
+                        "names one; implies span tracing)")
 
 
 class ObsSession:
@@ -65,7 +74,8 @@ class ObsSession:
 
     def __init__(self, run_dir: str, name: str, config: dict,
                  trace_on: bool, torch_profile: str = "",
-                 profile_on: bool = False, device=None):
+                 profile_on: bool = False, device=None, doctor_on: bool = False):
+        self._doctor_on = doctor_on
         # a fresh registry state so the record contains exactly this run
         obs_metrics.reset()
         self.tracer = obs_trace.tracer()
@@ -161,22 +171,42 @@ class ObsSession:
         print(f"obs: run record written to {self.run_dir}"
               + (" (trace.json loads in Perfetto)" if "trace.json" in
                  os.listdir(self.run_dir) else ""))
+        if self._doctor_on:
+            self._print_diagnosis()
         return self.run_dir
+
+    def _print_diagnosis(self) -> None:
+        """The ``--doctor`` exit hook: diagnose the sealed record, print."""
+        from repro_torch.obs import doctor as obs_doctor
+        from repro_torch.obs import perfdb
+        from repro_torch.obs.runlog import load_run
+
+        rows = None
+        if os.path.exists(perfdb.DEFAULT_PATH):
+            rows, _ = perfdb.load(perfdb.DEFAULT_PATH)
+        report = obs_doctor.diagnose(load_run(self.run_dir), history_rows=rows)
+        print(obs_doctor.render_text(report))
 
 
 def start_session(args, name: str,
                   config: Optional[dict] = None) -> Optional[ObsSession]:
     """Build the session the launcher's flags ask for (None when neither
-    ``--trace`` nor ``--metrics`` names a directory)."""
+    ``--trace`` nor ``--metrics`` names a directory and ``--doctor`` is off)."""
     run_dir = getattr(args, "trace", "") or getattr(args, "metrics", "")
+    doctor_on = bool(getattr(args, "doctor", False))
     if not run_dir:
-        return None
+        if not doctor_on:
+            return None
+        # --doctor alone still needs a record to diagnose: a temporary one
+        run_dir = tempfile.mkdtemp(prefix=f"doctor-{name}-")
     return ObsSession(
         run_dir,
         name,
         config if config is not None else dict(vars(args)),
-        trace_on=bool(getattr(args, "trace", "")),
+        # the doctor's critical path needs spans, so --doctor implies tracing
+        trace_on=bool(getattr(args, "trace", "")) or doctor_on,
         torch_profile=getattr(args, "torch_profile", ""),
         profile_on=bool(getattr(args, "profile", False)),
         device=getattr(args, "device", None),
+        doctor_on=doctor_on,
     )

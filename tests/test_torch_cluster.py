@@ -32,6 +32,7 @@ from repro.core import fimi as ref_fimi
 from repro.data.ibm_gen import IBMParams, generate_dense
 from repro_torch import cluster
 from repro_torch.core import eclat, fimi
+from repro_torch.obs import speedup
 
 ROOT = Path(__file__).resolve().parents[1]
 N_ITEMS = 24
@@ -107,9 +108,24 @@ def assert_same_run(got, want):
 
     snap, ref_snap = g.snapshot(), w.snapshot()
     assert snap["counters"] == ref_snap["counters"]
+    assert snap["histograms"] == ref_snap["histograms"]
+    assert set(snap["gauges"]) == set(ref_snap["gauges"])
     for name, value in snap["gauges"].items():
-        if "phase_ms" not in name and not name.endswith("mine_ms"):
+        if not holds_time(name):
             assert value == ref_snap["gauges"][name], name
+    # the waterfall's speedup/* gauges hold times; on the reference's phase
+    # and round times, the port's waterfall gives the reference's gauges
+    at_ref_times = {name: ref_snap["gauges"][name] if holds_time(name) else value
+                    for name, value in snap["gauges"].items()
+                    if not name.startswith("speedup/")}
+    wf = speedup.from_snapshot({"counters": snap["counters"], "gauges": at_ref_times,
+                                "histograms": {}})
+    assert wf.gauges() == {name: value for name, value in ref_snap["gauges"].items()
+                           if name.startswith("speedup/")}
+
+
+def holds_time(gauge: str) -> bool:
+    return "phase_ms" in gauge or gauge.endswith("mine_ms") or gauge.startswith("speedup/")
 
 
 def check_against_reference(dense, P, seed, use_mxu, rebalance):
@@ -144,6 +160,34 @@ def test_executor_equals_reference(dense, seed, use_mxu, rebalance):
     want = check_against_reference(dense, 2, seed, use_mxu, rebalance)
     if rebalance:  # the case is one where the rebalancer moves work
         assert want.report.donations
+
+
+@pytest.mark.parametrize("overflow,exchange_capacity,max_out",
+                         [("exchange", 48, ECLAT["max_out"]), ("mine", None, 16)])
+def test_executor_without_strict_under_overflow_equals_reference(
+        dense, overflow, exchange_capacity, max_out):
+    """``strict=False`` with the exchange's slabs or the miners' FI buffers
+    too small: no exception, and the overflow counters, the rounds' trips
+    and the (truncated) table equal the reference's, row for row."""
+    small = dict(ECLAT, max_out=max_out)
+    knobs = dict(exchange_capacity=exchange_capacity, skew_threshold=1.05, strict=False)
+    want = ref_cluster.execute(
+        ref_fimi.shard_db(dense, 2), N_ITEMS,
+        ref_cluster.ClusterParams(planner=ref_cluster.PlannerParams(**PLANNER),
+                                  eclat=ref_eclat.EclatConfig(**small), **knobs),
+        jax.random.PRNGKey(0))
+    assert getattr(want.report, f"{overflow}_overflow") > 0
+
+    def port(strict):
+        return cluster.execute(
+            fimi.shard_db(dense, 2, "cpu"), N_ITEMS,
+            cluster.ClusterParams(planner=cluster.PlannerParams(**PLANNER),
+                                  eclat=eclat.EclatConfig(**small), **dict(knobs, strict=strict)),
+            device="cpu", plan=cluster.plan_from_reference(want.plan))
+
+    assert_same_run(port(strict=False), want)
+    with pytest.raises(RuntimeError, match="overflow"):
+        port(strict=True)
 
 
 def test_cluster_mine_parity_on_cpu_imports_neither_jax_nor_repro():

@@ -159,7 +159,19 @@ def test_serving_launchers_raise_without_cuda(launcher, monkeypatch):
     assert module.main(small + ["--device", "cpu"]) is not None
 
 
+RANK_CHILD = """
+import json, sys
+from repro_torch.launch import mine
+mine.main(['--device', 'cpu', '--db', 'T1I0.032P20PL6TL10', '--support', '0.08', '-P', '2',
+           '--devices', '2'])
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))
+print('rank modules: ' + json.dumps(bad), flush=True)
+"""
+
+
 def test_launcher_imports_neither_jax_nor_repro(tmp_path):
+    (tmp_path / "rank_child.py").write_text(RANK_CHILD)
+    healthy = str(ROOT / "tests" / "data" / "run_healthy")
     code = (
         "import json, runpy, sys\n"
         "sys.argv = ['mine', '--device', 'cpu', '--db', 'T1I0.032P20PL6TL10',"
@@ -189,6 +201,11 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
         "import repro_torch.obs, repro_torch.obs.session\n"
         "from repro_torch.launch import profile_demo\n"
         "assert profile_demo.main(['--device', 'cpu']) == 0\n"
+        "from repro_torch.launch import obs_report, ranks\n"
+        f"assert obs_report.main(['critpath', {healthy!r}]) == 0\n"
+        f"assert obs_report.main(['doctor', {healthy!r}, '--history', 'none.jsonl']) == 0\n"
+        f"assert ranks.spawn([sys.executable, {str(tmp_path / 'rank_child.py')!r}], 2,"
+        " timeout=120) == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(json.dumps(bad))\n"
     )
@@ -216,6 +233,9 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
     # and the profiled demo, every family timed
     assert "pair_supports=0 pair_supports_mxu=0" in done.stdout
     assert "profile_demo: families without measured time" not in done.stdout
+    # the port's obs_report, and a rank's child process (two gloo ranks)
+    assert "doctor: 3 finding(s), worst = info" in done.stdout
+    assert "backend=gloo" in done.stdout and "rank modules: []" in done.stdout
     assert json.loads(lines[-1]) == []
 
 
@@ -246,6 +266,8 @@ def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
         (ROOT / "probes").glob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
+    for module in ("launch/obs_report.py", "launch/ranks.py", "obs/doctor.py"):
+        assert ROOT / "src" / "repro_torch" / module in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]

@@ -182,7 +182,7 @@ def test_parser_defaults_equal_the_reference_but_the_files():
     and the port writes its own BENCH file."""
     got = vars(serve_load.build_parser().parse_args([]))
     assert got.pop("device") == "cuda" and got.pop("bench_out") == "BENCH_torch_serve.json"
-    for k in ("trace", "metrics", "profile", "torch_profile"):
+    for k in ("trace", "metrics", "profile", "torch_profile", "doctor"):
         got.pop(k)
     assert got == {
         "db": "T0.5I0.024P8PL5TL8", "support": 0.08, "minconf": 0.3, "replicas": 2,
