@@ -126,6 +126,29 @@ prints one JSON object on a line of its own:
   ranks    ``mine`` and ``cluster_mine`` with ``-P 1 --devices 1`` in child
            processes, each miner a rank of a one-rank NCCL group on the card:
            ``backend=nccl``, |F| and the FITable's SHA-256 those of ``main``;
+           beside them ``mine --store`` on the ``store`` phase's store, a
+           rank reading its own shard off disk: ``backend=nccl``, |F| and the
+           SHA-256 of the dense mine of the store's rows, B1 and B3 launched;
+  lm_serve the LM substrate's serving path (``repro_torch.launch.serve``'s
+           ``generate``): llama3.2-3b at its full config (bf16 weights drawn
+           from seed 0), batch 4, a prompt of 16 and 32 generated tokens; then
+           olmoe-1b-7b and mamba2-1.3b at their full configs with 8 tokens:
+           the parameter count (equal to ``models.model.n_params`` of the
+           config, the spec tree's; the config's analytic count beside it),
+           peak memory, prefill and decode walls, tokens a second, every token
+           below the vocabulary, finite logits, and the decode logits at
+           every prompt position against ``forward``'s, reported (the
+           reference's init law makes attention near one-hot, so at full
+           depth rounding flips keys and decode and forward part by O(1)).
+           Checked at the same width cut to 4 layers, on f32 weights from
+           seed 0: the decode against ``forward`` within 5e-2 x max |logit|
+           with the greedy token at the prompt's end equal from both (and
+           from ``make_prefill_step``).
+           Then each of the ten architectures at its ``smoke()`` config,
+           its weights drawn on the CPU and copied to the card, in f32 and in
+           bf16: a forward of 8 tokens and 8 decode steps on the card against
+           the same on the CPU within 1e-3 (f32) and 0.25 (bf16: MoE routing
+           flips with the summation order) x max |logit|;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -1442,32 +1465,33 @@ def phase_cluster_obs(torch, dev, dense, want, smi, tmp):
     return out["healthy"]["launches"]
 
 
-RANK_RUNS = {"mine": "repro_torch.launch.mine", "cluster_mine": "repro_torch.launch.cluster_mine"}
-
-
-def phase_ranks(dev, want, smi, tmp):
+def phase_ranks(dev, want, store_want, smi, tmp):
     """``mine`` and ``cluster_mine`` with ``-P 1 --devices 1`` on the thesis
     database, each in a child process that runs its miner as a rank of a
     one-rank NCCL group on the card (one H100 admits a world of one: NCCL
     puts no two ranks on one GPU): ``backend=nccl``, and |F| and the FITable
-    (its SHA-256, ``--digest``) those of ``main``.  The two children run side
-    by side, their output in files under ``tmp``; each generates the database
-    itself."""
+    (its SHA-256, ``--digest``) those of ``main``; each generates the
+    database itself.  Beside them ``mine --store`` on the store the ``store``
+    phase wrote under ``tmp``, its rank reading its shard off disk: the
+    FITable ``store_want`` of the dense mine of the store's rows.  The three
+    children run side by side, their output in files under ``tmp``."""
     from repro_torch.core import fimi
 
-    digest = fimi.fitable_digest(want)
     backend = "nccl" if dev.type == "cuda" else "gloo"
-    argv = ["--db", THESIS_DB, "--support", str(SUPPORT), "-P", "1", "--devices", "1",
-            "--frontier", "16", "--digest", "--device", dev.type]
+    argv = ["--support", str(SUPPORT), "-P", "1", "--devices", "1", "--frontier", "16",
+            "--digest", "--device", dev.type]
+    runs = {"mine": ("repro_torch.launch.mine", ["--db", THESIS_DB], want),
+            "cluster_mine": ("repro_torch.launch.cluster_mine", ["--db", THESIS_DB], want),
+            "mine_store": ("repro_torch.launch.mine", ["--store", f"{tmp}/st"], store_want)}
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     procs, walls = {}, {}
     try:
-        for name, module in RANK_RUNS.items():
+        for name, (module, source, _) in runs.items():
             with open(f"{tmp}/ranks_{name}.out", "w") as out, \
                     open(f"{tmp}/ranks_{name}.err", "w") as err:
-                procs[name] = subprocess.Popen([sys.executable, "-m", module, *argv], cwd=ROOT,
-                                               env=env, stdout=out, stderr=err)
+                procs[name] = subprocess.Popen([sys.executable, "-m", module, *source, *argv],
+                                               cwd=ROOT, env=env, stdout=out, stderr=err)
         for name, proc in procs.items():
             proc.wait(timeout=300)
             walls[name] = time.perf_counter() - t0
@@ -1478,23 +1502,193 @@ def phase_ranks(dev, want, smi, tmp):
                 proc.wait()
     rows = {}
     for name, proc in procs.items():
+        fis = runs[name][2]
+        digest = fimi.fitable_digest(fis)
         lines = Path(f"{tmp}/ranks_{name}.out").read_text().splitlines()
         head = next((line for line in lines if line.startswith("|F| = ")), "")
         launches = next((line for line in lines if line.startswith("kernel launches: ")), "")
         if proc.returncode != 0 or f"backend={backend}" not in head \
-                or f"|F| = {len(want)} " not in head or f"FITable sha256={digest}" not in lines:
+                or f"|F| = {len(fis)} " not in head or f"FITable sha256={digest}" not in lines:
             err = Path(f"{tmp}/ranks_{name}.err").read_text()[-2000:]
-            fail(f"ranks ({name}): exit {proc.returncode}, {head!r}, want |F| = {len(want)} "
-                 f"backend={backend} and the FITable of main; stderr: {err}")
+            fail(f"ranks ({name}): exit {proc.returncode}, {head!r}, want |F| = {len(fis)} "
+                 f"backend={backend} and the FITable {digest}; stderr: {err}")
         counts = {k: int(n) for k, n in (kv.split("=") for kv in launches.split()[2:])}
         if counts.get("multi_extension_supports", 0) <= 0 \
                 or counts.get("extension_supports", 0) <= 0:
             fail(f"ranks ({name}): B1 and B3 must launch: {counts}")
-        rows[name] = {"exit": 0, "backend": backend, "n_fis": len(want), "equals_main": True,
+        rows[name] = {"exit": 0, "backend": backend, "n_fis": len(fis), "fitable_sha256": digest,
+                      "equals": "the store's dense mine" if name == "mine_store" else "main",
                       "wall_s": walls[name], "line": head, "launches": counts}
+        if name == "mine_store":
+            rows[name]["host_high_water"] = next(
+                (line for line in lines if line.startswith("streamed host high-water")), "")
     emit({"phase": "ranks", "nvidia_smi": smi, "db": THESIS_DB, "support": SUPPORT, "P": 1,
-          "devices": 1, "fitable_sha256": digest, **rows})
+          "devices": 1, **rows})
     return {k: sum(row["launches"].get(k, 0) for row in rows.values()) for k in KERNELS}
+
+
+# lm_serve: the full configs served on the card, and the generated tokens of each
+LM_FULL = (("llama3.2-3b", 32), ("olmoe-1b-7b", 8), ("mamba2-1.3b", 8))
+LM_BATCH, LM_PROMPT = 4, 16
+LM_FULL_TOL, LM_SMOKE_TOL, LM_SMOKE_BF16_TOL = 5e-2, 1e-3, 0.25
+# a full config's width is checked at this depth (see lm_full_run)
+LM_CHECK_LAYERS = 4
+
+
+def lm_agreement(torch, cfg, params, prompts, run):
+    """The decode logits ``run`` kept at every prompt position against
+    ``forward`` on the same prompts: the largest difference as a share of
+    max |logit|, and the greedy token at the prompt's end from the decode,
+    the forward, ``make_prefill_step`` and the first generated token."""
+    from repro_torch.models import model as M
+    from repro_torch.models.steps import make_prefill_step
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full = M.forward(cfg, params, {"tokens": prompts})
+    torch.cuda.synchronize()
+    forward_s = time.perf_counter() - t0
+    last = make_prefill_step(cfg)(params, {"tokens": prompts})
+    V = cfg.vocab
+    dec, fwd = run.prompt_logits[..., :V].double(), full[..., :V].double()
+    scale = float(fwd.abs().max())
+    greedy = {"decode": dec[:, -1].argmax(-1).tolist(), "forward": fwd[:, -1].argmax(-1).tolist(),
+              "prefill_step": last[:, :V].double().argmax(-1).tolist(),
+              "first_generated": run.tokens[:, 0].tolist()}
+    agree = len({tuple(v) for v in greedy.values()}) == 1
+    return {"decode_vs_forward": float((dec - fwd).abs().max()) / scale, "max_abs_logit": scale,
+            "greedy": greedy, "greedy_agrees": agree, "forward_s": forward_s}
+
+
+def lm_full_run(torch, dev, arch, gen):
+    """One full config through ``serve.generate`` on the card, bf16 weights
+    from seed 0: the parameter count, the walls, tokens a second and peak
+    memory, every token below the vocabulary and finite logits, and its
+    decode against ``forward``, reported.  Under the reference's init law
+    (fan-in ``shape[-2]``: the head count for the attention projections)
+    attention is near one-hot, so a rounding difference flips the key a
+    query takes and the stack amplifies it: at full depth decode and
+    forward part by O(1) in bf16 and in f32, so that figure is not checked.
+    The check runs at the config's full width cut to ``LM_CHECK_LAYERS``
+    layers, on f32 weights from seed 0: decode against forward within
+    ``LM_FULL_TOL`` with the greedy tokens equal."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+
+    cfg = get_config(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = M.init(cfg, 0, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = model.n_params()
+    if n != M.n_params(cfg):
+        fail(f"lm_serve ({arch}): {n} parameters on the card, the spec tree says "
+             f"{M.n_params(cfg)}")
+    params = model.params()
+    del model
+    prompts, frames = serve.draw_inputs(cfg, LM_BATCH, LM_PROMPT, 0, dev)
+    serve.generate(cfg, params, prompts[:, :2], 2, frames=frames)   # warm-up, untimed
+    run = serve.generate(cfg, params, prompts, gen, frames=frames, keep_prompt_logits=True)
+    peak = torch.cuda.max_memory_allocated()
+    tokens_ok = bool(((run.tokens >= 0) & (run.tokens < cfg.vocab)).all())
+    served = lm_agreement(torch, cfg, params, prompts, run)
+    row = {"n_params": n, "n_params_analytic": cfg.n_params(), "param_dtype": cfg.param_dtype,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model, "batch": LM_BATCH,
+           "prompt": LM_PROMPT, "gen": gen, "init_s": init_s, "prefill_s": run.prefill_s,
+           "decode_s": run.decode_s, "decode_ms_per_step": run.decode_s / gen * 1e3,
+           "tokens_per_s": run.tokens_per_s, "gen_tokens_per_s": LM_BATCH * gen / run.decode_s,
+           "peak_mem_bytes": peak, "tokens_below_vocab": tokens_ok,
+           "first_sequence": run.tokens[0, :16].tolist(), "bf16": served}
+    finite = bool(torch.isfinite(run.prompt_logits).all()) and np.isfinite(
+        served["max_abs_logit"])
+    del params, run
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=LM_CHECK_LAYERS, param_dtype="float32")
+    p32 = M.init(cut, 0, dev).params()
+    run32 = serve.generate(cut, p32, prompts, 1, frames=frames, keep_prompt_logits=True)
+    check = lm_agreement(torch, cut, p32, prompts, run32)
+    row["check"] = {"n_layers": LM_CHECK_LAYERS, **check}
+    del p32, run32
+    if not tokens_ok or not finite or not check["decode_vs_forward"] <= LM_FULL_TOL \
+            or not check["greedy_agrees"]:
+        fail(f"lm_serve ({arch}): served tokens below the vocabulary {tokens_ok}, logits "
+             f"finite {finite}; at {LM_CHECK_LAYERS} layers f32 decode against forward "
+             f"{check['decode_vs_forward']} (tolerance {LM_FULL_TOL}), greedy "
+             f"{check['greedy']}")
+    return row
+
+
+def lm_smoke_run(torch, dev, arch):
+    """One ``smoke()`` config, its weights drawn on the CPU in f32, in f32
+    and cast to bf16 (the casts of the served dtype): a forward of 8 tokens
+    and 8 decode steps on the card against the same on the CPU, within
+    ``LM_SMOKE_TOL`` (f32) and ``LM_SMOKE_BF16_TOL`` (bf16) x max |logit|."""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import map_tree
+
+    cfg32 = get_config(arch, smoke=True)
+    p32 = M.init(cfg32, 0, "cpu").params()
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg32.vocab, (2, 8), generator=g)}
+    if cfg32.family == "vlm":
+        batch["vision_embeds"] = torch.randn((2, cfg32.vision_tokens, cfg32.d_model),
+                                             generator=g)
+    if cfg32.family == "encdec":
+        batch["frames"] = torch.randn((2, cfg32.enc_context, cfg32.d_model), generator=g)
+    row = {"family": cfg32.family}
+    for name, dtype, tol in (("float32", torch.float32, LM_SMOKE_TOL),
+                             ("bfloat16", torch.bfloat16, LM_SMOKE_BF16_TOL)):
+        cfg = dataclasses.replace(cfg32, param_dtype=name)
+        cpu_params = map_tree(lambda a: a.to(dtype), p32)
+        out = {}
+        for where, params in (("cpu", cpu_params),
+                              ("cuda", map_tree(lambda a: a.to(dev), cpu_params))):
+            b = {k: v.to(params["embed"].device) for k, v in batch.items()}
+            with torch.no_grad():
+                logits = [M.forward(cfg, params, b)]
+                cache = M.init_cache(cfg, 2, 8, dtype, params["embed"].device)
+                if cfg.family == "encdec":
+                    cache = M.encode(cfg, params, b["frames"], cache)
+                for t in range(8):
+                    logits.append(
+                        M.decode_step(cfg, params, cache, b["tokens"][:, t:t + 1], t)[0])
+            out[where] = [lg[..., : cfg.vocab].float().cpu() for lg in logits]
+        scale = max(float(lg.abs().max()) for lg in out["cpu"])
+        err = max(float((a - b).abs().max()) for a, b in zip(out["cuda"], out["cpu"])) / scale
+        row[name] = {"card_vs_cpu": err, "max_abs_logit": scale}
+        if not err <= tol:
+            fail(f"lm_serve ({arch} smoke, {name}): the card's logits differ from the "
+                 f"CPU's by {err} x max |logit| (tolerance {tol})")
+    return row
+
+
+def phase_lm_serve(torch, dev, smi):
+    """The LM substrate's serving path on the card: the full configs of
+    ``LM_FULL`` through ``serve.generate``, then every architecture's smoke
+    config on the card against the CPU.  Plain PyTorch throughout: the LM
+    substrate reaches no ``pl.pallas_call`` in the reference, so it has no
+    kernel of this port."""
+    from repro_torch.configs.registry import all_archs
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 compares as f32
+    t0 = time.perf_counter()
+    full = {arch: lm_full_run(torch, dev, arch, gen) for arch, gen in LM_FULL}
+    torch.cuda.empty_cache()
+    smoke = {arch: lm_smoke_run(torch, dev, arch) for arch in all_archs()}
+    emit({"phase": "lm_serve", "nvidia_smi": smi,
+          "tolerance": {"full": LM_FULL_TOL, "full_layers": LM_CHECK_LAYERS,
+                        "smoke": LM_SMOKE_TOL, "smoke_bf16": LM_SMOKE_BF16_TOL},
+          "full": full, "smoke": smoke, "wall_s": time.perf_counter() - t0})
 
 
 def phase_profile(torch, dev, dense, serve_run, store):
@@ -2037,7 +2231,7 @@ def phase_store(torch, dev, sms, smi, tmp):
           "recount": {"launches": b5_launches, "seconds": recount_s, "equals_mine": True},
           "retail_tiny": {"n_fis": len(retail.fi_dict), "parity": True},
           "peak_mem_bytes": peak, "launches": launches, "timed": b5})
-    return b5, {**launches, "block_itemset_supports": b5_launches}, store
+    return b5, {**launches, "block_itemset_supports": b5_launches}, store, ref.fi_dict
 
 
 def main() -> None:
@@ -2101,7 +2295,8 @@ def main() -> None:
     launches["multi_extension_supports_mxu"] = launches_mxu["multi_extension_supports_mxu"]
     phase_resume(dev, MID_DB, mid)
     store_dir = tempfile.TemporaryDirectory()  # removed when the script ends
-    store_timing, store_launches, store = phase_store(torch, dev, sms, smi, store_dir.name)
+    store_timing, store_launches, store, store_want = phase_store(torch, dev, sms, smi,
+                                                                  store_dir.name)
     serve_run, launches_serve, serve_timings = phase_serve(torch, dev, dense, want, sms)
     launches["subset_superset_counts"] = launches_serve["subset_superset_counts"]
     fi = serve_run.fi_index
@@ -2115,7 +2310,8 @@ def main() -> None:
     cluster_stream_launches = phase_stream_cluster(torch, dev, stream_res, stream_blocks, smi,
                                                    store_dir.name)
     cluster_obs_launches = phase_cluster_obs(torch, dev, dense, want, smi, store_dir.name)
-    rank_launches = phase_ranks(dev, want, smi, store_dir.name)
+    rank_launches = phase_ranks(dev, want, store_want, smi, store_dir.name)
+    phase_lm_serve(torch, dev, smi)
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty

@@ -148,21 +148,23 @@ def plan(
     shard order); the j of Algorithm R for the t-th FI of the sample's stream
     from another, or from ``reservoir_draws[t - 1]``.  ``device`` defaults
     to CUDA.  With a :class:`TxStore`, ``P`` is required, ``n_items`` may be
-    None, and the sample rows are gathered off disk at the same indices.
-    ``coll`` holds the miners (default: all of them here); under a
-    ``DistCollectives`` ``tx_shards`` is the whole database or the rank's
-    shard.
+    None, and the sample rows are gathered off disk at the same indices,
+    each rank reading those of its own shard.  ``coll`` holds the miners
+    (default: all of them here); under a ``DistCollectives`` ``tx_shards``
+    is the whole database, the rank's shard, or the store.
     """
     dev = device_mod.resolve(device)
     store = None
     if isinstance(tx_shards, TxStore):   # plan off disk
-        phases.require_local(coll, "planning")
         store = tx_shards
         if P is None:
             raise ValueError("P (shard count) is required when planning a TxStore")
         if n_items is None:
             n_items = store.n_items
         T, IW = store.n_tx // P, store.n_words
+        coll = coll if coll is not None else phases.LocalCollectives(P)
+        if coll.P != P:
+            raise ValueError(f"P={P} miners, but the collectives hold {coll.P}")
     else:
         tx_shards = tx_shards.to(dev)
         coll = coll if coll is not None else phases.LocalCollectives(tx_shards.shape[0])
@@ -178,9 +180,11 @@ def plan(
     g_samp, g_mine = (device_mod.generator(dev, seed, stream) for stream in (0, 1))
     sample_idx = bm.sample_indices(n_tx, n_db, generator=g_samp, idx=sample_idx,
                                    device=dev).to(dev)
-    if store is not None:   # the rows off disk
-        rows = store_reader.sample_rows(store, sample_idx, device=dev)
-    else:   # the same indices on every rank, each row from the miner holding it
+    # the same indices on every rank, each row from the miner holding it (off
+    # disk: from the blocks of its shard)
+    if store is not None:
+        rows = _gather_store_rows(coll, store, T, sample_idx)
+    else:
         rows = _gather_rows(coll, tx_shards, sample_idx)
     sample_bitdb = bm.rebuild_vertical(rows, n_items, n_db)
     sample_minsup = int(np.ceil(params.min_support_rel * n_db))
@@ -284,6 +288,21 @@ def _gather_rows(coll: phases.Collectives, tx_shards: torch.Tensor,
         mine = owner == p
         part[j, mine] = tx_shards[j][row[mine]]
     return coll.psum(part).to(tx_shards.dtype)
+
+
+def _gather_store_rows(coll: phases.Collectives, store: TxStore, T: int,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """:func:`_gather_rows` off disk: each held miner reads the rows ``idx``
+    that fall in its shard (``[p·T, (p+1)·T)`` of the store) from the
+    blocks holding them, and the sum over the miners leaves every row once."""
+    owner = idx // T
+    part = torch.zeros((len(coll.miners), idx.shape[0], store.n_words), dtype=torch.int32,
+                       device=idx.device)
+    for j, p in enumerate(coll.miners):
+        mine = owner == p
+        if bool(mine.any()):
+            part[j, mine] = store_reader.sample_rows(store, idx[mine], device=idx.device)
+    return coll.psum(part).to(torch.int32)
 
 
 def pack_seeds(

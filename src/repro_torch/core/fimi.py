@@ -142,7 +142,9 @@ def run(
     :class:`~repro_torch.store.reader.BlockReader` on this store, whose
     ``peak_host_bytes`` the caller reads) or a new reader with
     ``host_budget_blocks``: bit-exact with ``shard_db(store.to_dense(), P)``,
-    so everything after is the in-RAM path's.
+    so everything after is the in-RAM path's.  Under a ``DistCollectives``
+    each rank assembles its own shard alone, reading only the blocks that
+    hold its rows.
 
     ``seed`` drives the torch generators of Phase 1 and of the coverage
     sampler, and seeds the numpy generator of the reservoir merge with
@@ -161,7 +163,6 @@ def run(
     launched_before = ops.kernel_launches()
     phase_s: Dict[str, float] = {}
     if isinstance(tx_shards, TxStore):   # mine out of core
-        phases.require_local(coll, "mining")
         if P is None:
             raise ValueError("P (miner count) is required when mining a TxStore")
         if n_items is None:
@@ -169,8 +170,8 @@ def run(
         t0 = time.perf_counter()
         with tr.span("fimi/assemble_store", P=P):
             tx_shards = tr.sync(store_reader.to_device_shards(
-                tx_shards, P, host_budget_blocks=host_budget_blocks,
-                reader=reader, device=dev,
+                tx_shards, P, miners=coll.miners if coll is not None else None,
+                host_budget_blocks=host_budget_blocks, reader=reader, device=dev,
             ))
         device_mod.synchronize(dev)
         phase_s["assemble_store"] = time.perf_counter() - t0

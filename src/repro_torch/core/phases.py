@@ -165,13 +165,6 @@ class DistCollectives:
         return dict(zip(counts, (int(n) for n in total.cpu())))
 
 
-def require_local(coll: Optional[Collectives], what: str) -> None:
-    """Raise unless ``coll`` holds every miner in this process: the on-disk
-    :class:`~repro_torch.store.store.TxStore` is read by one process."""
-    if coll is not None and len(coll.miners) < coll.P:
-        raise ValueError(f"{what} a TxStore across ranks is not supported")
-
-
 Collectives = LocalCollectives | DistCollectives
 
 

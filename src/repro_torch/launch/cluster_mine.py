@@ -31,7 +31,8 @@ waterfall's ``speedup/*`` gauges, the spans ``cluster/plan``,
 ``--store DIR`` / ``--dataset F.dat`` mine out of core, as in the JAX
 launcher: the plan is sampled off disk (``planner.plan`` on the store) and
 the shards are assembled on the card block by block through the
-double-buffered reader (``phase_ms["assemble"]``); not with ``--devices``.
+double-buffered reader (``phase_ms["assemble"]``); under ``--devices`` each
+rank reads its own shard's blocks and the sampled rows that fall in it.
 Under ``--devices`` the ``--curve`` points and the ``--parity`` reference
 run on rank 0 alone, on its device.
 
@@ -57,7 +58,7 @@ from repro_torch import cluster
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
 from repro_torch.launch import ranks
-from repro_torch.launch.data_source import resolve_source
+from repro_torch.launch.data_source import resolve_source, store_argv
 from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.store.reader import to_device_shards
 from repro_torch.store.store import TxStore
@@ -109,9 +110,11 @@ def run_once(dense: Optional[np.ndarray], P: int, args, dev, use_mxu: bool = Fal
     t0 = time.perf_counter()
     plan, phase_ms = None, {}
     if store is not None:
-        plan = cluster.plan(store, None, params.planner, seed=args.seed, device=dev, P=P)
+        plan = cluster.plan(store, None, params.planner, seed=args.seed, device=dev, P=P,
+                            coll=coll)
         t1 = time.perf_counter()
-        shards = to_device_shards(store, P, device=dev)
+        shards = to_device_shards(store, P, miners=coll.miners if coll is not None else None,
+                                  device=dev)
         device_mod.synchronize(dev)
         phase_ms = {"plan": (t1 - t0) * 1e3, "assemble": (time.perf_counter() - t1) * 1e3}
     else:
@@ -239,7 +242,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Optional[cluster.ClusterResult
     args = build_parser().parse_args(argv)
     dev = device_mod.resolve(args.device)
     coll = ranks.from_flags("repro_torch.launch.cluster_mine", argv, args.devices, args.P, dev,
-                            store=bool(args.store or args.dataset))
+                            prepare=lambda a: store_argv(args, a))
     if coll is not None:
         dev = coll.device
     lead = coll is None or coll.rank == 0

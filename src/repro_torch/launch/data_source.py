@@ -11,13 +11,16 @@ sources, as the JAX package's launchers do; this resolves them in one place:
     database into it block by block first;
   * neither              — generate the ``--db`` database dense in RAM.
 
-Returns ``(store, dense, label)`` where exactly one of ``store`` /
-``dense`` is set.  Host side only: nothing here touches a device.
+:func:`resolve_source` returns ``(store, dense, label)`` where exactly one
+of ``store`` / ``dense`` is set.  :func:`store_argv` makes the store once,
+before a launcher starts its ranks (``--devices``), and points their command
+line at it, so no two ranks write one store.  Host side only: nothing here
+touches a device.
 """
 from __future__ import annotations
 
 import tempfile
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -46,3 +49,28 @@ def resolve_source(
         )
         return store, None, f"store={store_dir} (spilled from {db})"
     return None, generate_dense(params_from_name(db, seed=seed)), f"db={db}"
+
+
+def _without(argv: Sequence[str], flags: Sequence[str]) -> List[str]:
+    """``argv`` with every ``--flag VALUE`` / ``--flag=VALUE`` of ``flags`` removed."""
+    out, skip = [], False
+    for a in argv:
+        if skip:
+            skip = False
+        elif a in flags:
+            skip = True
+        elif not any(a.startswith(f + "=") for f in flags):
+            out.append(a)
+    return out
+
+
+def store_argv(args, argv: Sequence[str]) -> List[str]:
+    """The command line of a launcher's ranks: with a ``--dataset`` or
+    ``--store`` source, the store is made here (ingested or spilled, as
+    :func:`resolve_source` does) and the ranks get ``--store DIR`` alone;
+    any other ``argv`` is returned as it is."""
+    if not (args.dataset or args.store):
+        return list(argv)
+    store, _, _ = resolve_source(args.dataset, args.store, args.db,
+                                 block_tx=args.blocktx, seed=args.seed)
+    return _without(argv, ("--dataset", "--store")) + ["--store", store.directory]

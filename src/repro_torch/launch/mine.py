@@ -4,7 +4,9 @@ the thesis' Methods 1–3; the default is ``reservoir``).
 
 ``--devices N`` with N ≥ P runs the miners as P rank processes, one miner a
 rank (``launch/ranks.py``; NCCL on the card, rank r on ``cuda:r``, gloo with
-``--device cpu``); rank 0 prints and records.  With N < P (the default N = 0)
+``--device cpu``); rank 0 prints, records and runs ``--parity``.  With a
+store each rank reads only its own shard's blocks, through a reader of its
+own.  With N < P (the default N = 0)
 the P miners share one device.  ``--digest`` prints the FITable's SHA-256, to
 compare runs across processes.
 
@@ -39,6 +41,8 @@ trace.  Without them nothing is recorded.
       -P 4 --devices 4                      # four gloo ranks
   python -m repro_torch.launch.mine --db T500I0.1P50PL10TL40 --support 0.2 \
       --store DIR --blocktx 65536 --parity
+  python -m repro_torch.launch.mine --db T1I0.032P20PL6TL10 --support 0.08 --device cpu \
+      --store DIR --blocktx 128 -P 4 --devices 4 --parity
   python -m repro_torch.launch.mine --dataset examples/retail_tiny.dat \
       --support 0.2 -P 2 --parity --device cpu
 """
@@ -55,7 +59,7 @@ import numpy as np
 from repro_torch import device as device_mod
 from repro_torch.core import eclat, fimi
 from repro_torch.launch import ranks
-from repro_torch.launch.data_source import resolve_source
+from repro_torch.launch.data_source import resolve_source, store_argv
 from repro_torch.obs.session import add_obs_flags, start_session
 from repro_torch.store.reader import BlockReader
 from repro_torch.store.store import TxStore
@@ -93,15 +97,17 @@ def mine_dense(dense: np.ndarray, *, support: float, P: int = 4, frontier: int =
 def mine_store(store: TxStore, *, support: float, P: int = 4, frontier: int = 16,
                scheduler: str = "lpt", alpha: float = 0.5, seed: int = 0,
                device: Optional[str] = None, materialize: bool = False,
-               variant: str = "reservoir", reader: Optional[BlockReader] = None):
+               variant: str = "reservoir", reader: Optional[BlockReader] = None,
+               coll=None):
     """Mine a store out of core, its shards assembled on the device through
-    ``reader`` (a new 2-block reader when None); returns
-    ``(result, wall_s)``, the wall including the assembly."""
+    ``reader`` (a new 2-block reader when None; a rank of ``coll`` assembles
+    its own shard alone); returns ``(result, wall_s)``, the wall including
+    the assembly."""
     dev = device_mod.resolve(device)
     params = mine_params(support, store.n_tx, frontier, scheduler, alpha, variant)
     t0 = time.perf_counter()
     res = fimi.run(store, None, params, seed=seed, device=dev, materialize=materialize,
-                   P=P, reader=reader)
+                   P=P, reader=reader, coll=coll)
     device_mod.synchronize(dev)
     return res, time.perf_counter() - t0
 
@@ -172,7 +178,7 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
     dev = device_mod.resolve(args.device)
     coll = ranks.from_flags("repro_torch.launch.mine", argv, args.devices, args.P, dev,
-                            store=bool(args.store or args.dataset))
+                            prepare=lambda a: store_argv(args, a))
     if coll is not None:
         dev = coll.device
     obs = start_session(args, "mine") if coll is None or coll.rank == 0 else None
@@ -196,20 +202,30 @@ def main(argv: Optional[Sequence[str]] = None):
               f"host budget = {args.budget_blocks} blocks ({reader.budget_bytes} bytes)")
         # the mine's own block stream is the residency measurement: fimi.run
         # assembles the shards through this reader (one pass, no extra I/O)
-        res, wall_s = mine_store(store, reader=reader, materialize=materialize, **kw)
+        res, wall_s = mine_store(store, reader=reader, materialize=materialize, coll=coll,
+                                 **kw)
     else:
         res, wall_s = mine_dense(dense, materialize=materialize, coll=coll, **kw)
     report(res, wall_s)
     if args.digest:
         print(f"FITable sha256={fimi.fitable_digest(res.fi_dict)}", flush=True)
     if store is not None:
-        print(f"streamed host high-water: {reader.peak_host_bytes} bytes "
-              f"(budget {reader.budget_bytes})")
+        if coll is None:
+            print(f"streamed host high-water: {reader.peak_host_bytes} bytes "
+                  f"(budget {reader.budget_bytes})")
+        else:   # each rank's own reader
+            peaks = coll.gather_counts([reader.peak_host_bytes]).tolist()
+            print(f"streamed host high-water: {max(peaks)} bytes "
+                  f"(budget {reader.budget_bytes}; by rank {peaks})")
     if obs:
         obs.event("mined", n_fis=res.n_fis, wall_s=wall_s,
                   work_iters=res.work_iters.tolist())
         obs.finish(n_fis=res.n_fis, n_tx=n_tx, n_items=n_items,
                    mine_wall_s=wall_s, replication=res.replication)
+    if coll is not None:
+        ranks.finish()
+        if coll.rank != 0:
+            return res
 
     # ---- parity gate: out-of-core result == dense in-RAM result ------------
     if args.parity:
@@ -228,8 +244,6 @@ def main(argv: Optional[Sequence[str]] = None):
               + (f", bit-exact supports; store {store.total_bytes}B > "
                  f"host budget {reader.budget_bytes}B)" if out_of_core else ")"),
               flush=True)
-    if coll is not None:
-        ranks.finish()
     return res
 
 

@@ -32,7 +32,7 @@ import socket
 import subprocess
 import sys
 import time
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -135,25 +135,25 @@ def collectives(P: int, device: str | torch.device | None) -> phases.DistCollect
 
 def from_flags(module: str, argv: Optional[Sequence[str]], devices: int, P: int,
                device: str | torch.device | None,
-               store: bool = False) -> Optional[phases.DistCollectives]:
+               prepare: Optional[Callable[[List[str]], List[str]]] = None,
+               ) -> Optional[phases.DistCollectives]:
     """What ``--devices N`` asks of the launcher ``module`` run with ``argv``
     (None: ``sys.argv[1:]``).
 
     None when N < P or N = 0: the P miners share one device.  Outside a
-    rank, spawn P ranks of the launcher and exit with their code.  In a
-    rank, join the group and return its collectives; every rank but 0
-    prints nothing (``torchrun`` would show them all).  ``store`` (a
-    ``--store`` or ``--dataset`` source) raises: the store path runs on
-    one device.
+    rank, spawn P ranks of the launcher and exit with their code; with
+    ``prepare`` the ranks run with ``prepare(argv)`` instead, which may do
+    once what the ranks must not each do (make the on-disk store they all
+    read).  In a rank, join the group and return its collectives; every
+    rank but 0 prints nothing (``torchrun`` would show them all).
     """
     if not wants_ranks(devices, P):
         return None
-    if store:
-        raise ValueError("--store/--dataset with --devices is not supported: "
-                         "the store path runs on one device")
     if not in_rank():
         check_devices(devices, device)
         argv = list(sys.argv[1:] if argv is None else argv)
+        if prepare is not None:
+            argv = prepare(argv)
         sys.stdout.flush()
         raise SystemExit(spawn([sys.executable, "-m", module, *argv], P))
     coll = collectives(P, device)

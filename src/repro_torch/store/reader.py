@@ -37,7 +37,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -75,6 +75,7 @@ class _Staging:
         self.words = self.tensor.numpy().view(np.uint32)
         self.block: Optional[int] = None
         self.copied: Optional[torch.cuda.Event] = None
+        self.first = 0      # the first staged row the copy takes
 
 
 class BlockReader:
@@ -216,7 +217,7 @@ class BlockReader:
         """Copy the first ``n_rows`` staged rows into ``dst`` (a fresh device
         tensor when None); the consumer's stream waits for it."""
         IW = self.store.n_words
-        src = slot.tensor[: n_rows * IW].view(n_rows, IW)
+        src = slot.tensor[slot.first * IW: (slot.first + n_rows) * IW].view(n_rows, IW)
         if side is None:            # the CPU: synchronous, the buffer is free
             if dst is None:
                 dst = torch.empty((n_rows, IW), dtype=torch.int32, device=self.device)
@@ -240,24 +241,35 @@ class BlockReader:
 
     # -- the double-buffered stream -------------------------------------------
     def device_blocks(
-        self, dest: Optional[torch.Tensor] = None,
+        self, dest: Optional[torch.Tensor] = None, first_row: int = 0,
     ) -> Iterator[Tuple[int, int, torch.Tensor, int]]:
         """Yield ``(block_index, row_offset, device_block, n_rows)``.
 
-        With ``dest`` (int32 ``[R, IW]`` on the reader's device) each block's
-        rows that fall in ``[0, R)`` are copied straight into ``dest``'s row
-        slice, which is what is yielded (it holds ``min(n_rows, R − off)``
-        rows); otherwise each block gets a device tensor of its own.  A
-        prefetch failure raises here, at the iteration that needed the
-        block, with the block's index and path in the message.
+        With ``dest`` (int32 ``[R, IW]`` on the reader's device), which
+        stands for the store's rows ``[first_row, first_row + R)``, only the
+        blocks holding some of those rows are read, and each block's rows
+        among them are copied straight into their slice of ``dest``, which
+        is what is yielded; otherwise every block is read into a device
+        tensor of its own.  A prefetch failure raises here, at the iteration
+        that needed the block, with the block's index and path in the
+        message.
         """
-        n = self.store.n_blocks
+        sizes = self.store.block_sizes
+        starts = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+        if dest is None:
+            if first_row:
+                raise ValueError("first_row needs a dest")
+            order = list(range(len(sizes)))
+        else:
+            if dest.device.type != self.device.type or dest.dtype != torch.int32:
+                raise ValueError(f"dest must be int32 on {self.device}")
+            last = first_row + dest.shape[0]
+            order = [i for i in range(len(sizes))
+                     if starts[i] < last and starts[i + 1] > first_row]
+        n = len(order)
         if n == 0:
             return
         cuda = self.device.type == "cuda"
-        if dest is not None and (dest.device.type != self.device.type
-                                 or dest.dtype != torch.int32):
-            raise ValueError(f"dest must be int32 on {self.device}")
         words = self.store.max_block_bytes // 4
         if len(self._slots) != N_STAGING or self._slots[0].words.size < max(words, 1):
             self._slots = [_Staging(words, pin=cuda) for _ in range(N_STAGING)]
@@ -269,11 +281,10 @@ class BlockReader:
         reg = obs_metrics.registry()
         stall_h = reg.histogram("store/prefetch_stall_s")
         blocks_c = reg.counter("store/blocks_read")
-        off = 0
         ex = ThreadPoolExecutor(max_workers=1)
-        fut = ex.submit(self._stage, 0, 0)
+        fut = ex.submit(self._stage, order[0], 0)
         try:
-            for i in range(n):
+            for j, i in enumerate(order):
                 t_wait = time.perf_counter()
                 try:
                     arr = fut.result()
@@ -288,13 +299,19 @@ class BlockReader:
                 # when the read hid behind the previous block's work
                 stall_h.record(time.perf_counter() - t_wait)
                 blocks_c.inc()
-                if i + 1 < n:
-                    fut = ex.submit(self._stage, i + 1, (i + 1) % N_STAGING)
-                slot = self._slots[i % N_STAGING]
+                if j + 1 < n:
+                    fut = ex.submit(self._stage, order[j + 1], (j + 1) % N_STAGING)
+                slot = self._slots[j % N_STAGING]
                 n_rows = int(arr.shape[0])
                 del arr  # the staging buffer's view
-                take = n_rows if dest is None else max(0, min(n_rows, dest.shape[0] - off))
-                dst = None if dest is None else dest[off:off + take]
+                off = int(starts[i])
+                if dest is None:
+                    slot.first, take, dst = 0, n_rows, None
+                else:
+                    slot.first = max(first_row - off, 0)
+                    take = max(0, min(n_rows, last - off) - slot.first)
+                    at = off + slot.first - first_row
+                    dst = dest[at:at + take]
                 if take == 0:
                     self._free(slot)
                     dev = dst if dst is not None else torch.empty(
@@ -308,7 +325,6 @@ class BlockReader:
                     if other is not slot:
                         self._settle(other, wait=False)
                 yield i, off, dev, n_rows
-                off += n_rows
         finally:
             # join the worker before any exception propagates: no leaked
             # thread, and the in-flight future's error (if any) is
@@ -361,9 +377,8 @@ def to_device_rows(
     buf = torch.empty((total, store.n_words), dtype=torch.int32, device=reader.device)
     if total == 0:
         return buf
-    for _, off, _, n_blk in reader.device_blocks(dest=buf):
-        if off + n_blk >= total:
-            break
+    for _ in reader.device_blocks(dest=buf):
+        pass
     return buf
 
 
@@ -371,6 +386,7 @@ def to_device_shards(
     store: TxStore,
     P: int,
     *,
+    miners: Optional[Sequence[int]] = None,
     host_budget_blocks: int = 2,
     reader: Optional[BlockReader] = None,
     device: str | torch.device | None = None,
@@ -378,11 +394,26 @@ def to_device_shards(
     """``int32[P, T, IW]`` horizontal shards, bit-exact with
     ``fimi.shard_db(store.to_dense(), P)`` (row order preserved, the last
     ``n_tx mod P`` rows dropped), assembled block by block so the host never
-    holds more than the reader's budget."""
+    holds more than the reader's budget.
+
+    With ``miners`` only those shards are assembled,
+    ``int32[len(miners), T, IW]``, and only the blocks holding their rows
+    are read: a rank passes its collectives' ``miners`` and reads its own
+    shard off disk alone."""
     T = store.n_tx // P
-    rows = to_device_rows(store, T * P, host_budget_blocks=host_budget_blocks,
-                          reader=reader, device=device)
-    return rows.view(P, T, store.n_words)
+    if miners is None:
+        rows = to_device_rows(store, T * P, host_budget_blocks=host_budget_blocks,
+                              reader=reader, device=device)
+        return rows.view(P, T, store.n_words)
+    reader = _reader_for(store, host_budget_blocks, reader, device)
+    out = torch.empty((len(miners), T, store.n_words), dtype=torch.int32,
+                      device=reader.device)
+    for j, p in enumerate(miners):
+        if not 0 <= p < P:
+            raise ValueError(f"miner {p} is not one of the {P}")
+        for _ in reader.device_blocks(dest=out[j], first_row=p * T):
+            pass
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -391,8 +422,8 @@ def to_device_shards(
 
 
 def gather_rows(store: TxStore, indices) -> np.ndarray:
-    """Gather arbitrary row indices (duplicates allowed) in one block pass;
-    ``uint32[len(indices), IW]`` on the host."""
+    """Gather arbitrary row indices (duplicates allowed) in one pass over the
+    blocks that hold them; ``uint32[len(indices), IW]`` on the host."""
     idx = np.asarray(indices.cpu() if isinstance(indices, torch.Tensor) else indices,
                      np.int64).reshape(-1)
     assert idx.size == 0 or (idx.min() >= 0 and idx.max() < store.n_tx), (
@@ -400,12 +431,10 @@ def gather_rows(store: TxStore, indices) -> np.ndarray:
     )
     out = np.zeros((idx.shape[0], store.n_words), np.uint32)
     off = 0
-    for blk in store.iter_blocks():
-        nb = blk.shape[0]
-        if nb:
-            sel = np.nonzero((idx >= off) & (idx < off + nb))[0]
-            if sel.size:
-                out[sel] = blk[idx[sel] - off]
+    for i, nb in enumerate(store.block_sizes):
+        sel = np.nonzero((idx >= off) & (idx < off + nb))[0]
+        if sel.size:   # a block none of the rows lies in is not read
+            out[sel] = store.read_block(i)[idx[sel] - off]
         off += nb
     return out
 

@@ -266,7 +266,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + sorted(
         (ROOT / "probes").glob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and files[-1].exists()
-    for module in ("launch/obs_report.py", "launch/ranks.py", "obs/doctor.py"):
+    for module in ("launch/obs_report.py", "launch/ranks.py", "obs/doctor.py",
+                   "launch/serve.py", "models/model.py", "models/convert.py",
+                   "configs/registry.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     for path in files:
         for mod in _imported_modules(path):

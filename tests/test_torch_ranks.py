@@ -172,28 +172,6 @@ def test_shard_db_puts_only_the_held_shards_on_the_device(dense):
         np.testing.assert_array_equal(held.numpy(), whole[miners].numpy())
 
 
-def test_a_store_across_ranks_raises_in_the_pipeline_and_the_planner(tmp_path):
-    """One guard for the on-disk store: a collectives that holds fewer than
-    all P miners is refused, before anything is read."""
-    from repro_torch.core import phases
-    from repro_torch.store import StoreWriter
-
-    w = StoreWriter(str(tmp_path / "store"), n_items=8, block_tx=16)
-    w.append_dense(np.random.default_rng(0).random((32, 8)) < 0.3)
-    store = w.close()
-
-    class OneOfTwo:   # a rank's view: P = 2 miners, this process holds one
-        P, miners, backend = 2, [1], "gloo"
-
-    with pytest.raises(ValueError, match="mining a TxStore across ranks"):
-        fimi.run(store, None, fimi_params(), device="cpu", P=2, coll=OneOfTwo())
-    with pytest.raises(ValueError, match="planning a TxStore across ranks"):
-        cluster.plan(store, None, cluster_params().planner, device="cpu", P=2,
-                     coll=OneOfTwo())
-    phases.require_local(None, "mining")
-    phases.require_local(phases.LocalCollectives(2), "mining")
-
-
 def test_mine_devices_prints_gloo_and_the_local_fitable(capsys):
     from repro_torch.launch import mine
 
@@ -238,7 +216,7 @@ def test_a_failing_rank_fails_the_launcher(tmp_path):
     assert done.returncode != 0
 
 
-def test_devices_checks_and_the_local_fallback(monkeypatch):
+def test_devices_checks_and_the_local_fallback(monkeypatch, tmp_path):
     import torch
 
     assert not ranks.wants_ranks(0, 4) and not ranks.wants_ranks(2, 4)
@@ -249,11 +227,30 @@ def test_devices_checks_and_the_local_fallback(monkeypatch):
         ranks.check_devices(4, "cuda")
     ranks.check_devices(1, "cuda")
     ranks.check_devices(64, "cpu")
-    from repro_torch.launch import cluster_mine, mine
+    from argparse import Namespace
 
-    for module in (mine, cluster_mine):
-        with pytest.raises(ValueError, match="--devices"):
-            module.main(["--device", "cpu", "--store", "x", "-P", "2", "--devices", "2"])
+    from repro_torch.launch import data_source
+    from repro_torch.store import TxStore
+
+    # a --store or --dataset source is made once, before the ranks start, and
+    # the ranks get --store DIR alone; any other command line goes unchanged
+    store_dir = str(tmp_path / "st")
+    argv = ["--device", "cpu", "--store", store_dir, "--blocktx", "32", "-P", "2",
+            "--devices", "2"]
+    args = Namespace(dataset="", store=store_dir, db="T0.1I0.01P5PL3TL4", blocktx=32, seed=0)
+    assert data_source.store_argv(args, argv) == [
+        "--device", "cpu", "--blocktx", "32", "-P", "2", "--devices", "2", "--store", store_dir]
+    assert TxStore.open(store_dir).n_tx == 100
+    dense = ["--device", "cpu", "-P", "2", "--devices", "2"]
+    assert data_source.store_argv(Namespace(dataset="", store="", db="T0.1I0.01P5PL3TL4",
+                                            blocktx=32, seed=0), dense) == dense
+    retail = str(tmp_path / "retail")
+    argv = ["--dataset=" + str(ROOT / "examples" / "retail_tiny.dat"), "-P", "2"]
+    args = Namespace(dataset=str(ROOT / "examples" / "retail_tiny.dat"), store=retail, db="",
+                     blocktx=256, seed=0)
+    assert data_source.store_argv(args, argv + ["--store", retail]) == \
+        ["-P", "2", "--store", retail]
+    assert TxStore.open(retail).n_tx > 0
 
 
 SMALL = ["--device", "cpu", "--db", "T1I0.032P20PL6TL10", "--support", "0.08"]
