@@ -149,6 +149,23 @@ prints one JSON object on a line of its own:
            bf16: a forward of 8 tokens and 8 decode steps on the card against
            the same on the CPU within 1e-3 (f32) and 0.25 (bf16: MoE routing
            flips with the summation order) x max |logit|;
+  lm_train the LM substrate's training path (``repro_torch.launch.train``'s
+           loop): llama3.2-3b at its full config (bf16 parameters from seed 0,
+           f32 AdamW state, ``remat="block"``), batch 8 x seq 128, accum 1, 6
+           steps, no checkpoint: the parameter count (the spec tree's), each
+           step's wall, tokens a second, loss, grad norm and lr (equal to
+           ``lr_at``), peak memory, every loss and norm finite; at the same
+           width cut to 4 layers one batch's gradients with ``remat="block"``
+           and ``"none"``: less memory held after the forward and a lower peak
+           with ``block``, equal losses; each of
+           the ten ``smoke()`` configs (and llama3.2-3b at accum 2) one f32
+           step on the card against the CPU, within the CPU tests' bounds
+           (loss 1e-5 nats, each leaf's gradient 1e-3 of its max |g| and the
+           grad norm 1e-4 relative, whisper 1e-2 for both; the parameters
+           after the step within 2 lr); then ``tests/test_checkpoint_train.py``'s
+           drill: llama smoke memorizes one batch in 25 steps (last loss
+           below 0.8 of the first) and a checkpoint after step 9, restored by
+           the port's manager, replays step 10's loss within 1e-4;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -1691,6 +1708,262 @@ def phase_lm_serve(torch, dev, smi):
           "full": full, "smoke": smoke, "wall_s": time.perf_counter() - t0})
 
 
+# lm_train: the training path on the card (``repro_torch.launch.train``'s loop).
+# The full config at the launcher's defaults (batch 8 x seq 128, accum 1), 6 steps
+LM_TRAIN_ARCH, LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ = "llama3.2-3b", 6, 8, 128
+# card against CPU, the CPU tests' bounds (tests/torch_lm_train_parity.py): the
+# loss in nats, each leaf's gradient as a share of its max |g|, the grad norm
+# relative; whisper's own (its f32 gradients are ill-conditioned); the
+# parameters after one step within 2 lr
+LM_TRAIN_LOSS_TOL, LM_TRAIN_GRAD_REL, LM_TRAIN_NORM_REL = 1e-5, 1e-3, 1e-4
+LM_TRAIN_COND = {"whisper-small": 1e-2}
+# and under this share of their elements more than 1e-6 apart; m and v
+# within 2x the gradient's bound
+LM_TRAIN_PARAM_SHARE = 0.01
+# the memorize-and-resume drill of tests/test_checkpoint_train.py
+LM_MEMO_STEPS, LM_MEMO_SAVE_AT = 25, 9
+
+
+def lm_train_full(torch, dev):
+    """(a) The full config through ``train.train`` on the card: bf16
+    parameters, f32 AdamW state, ``remat="block"``, no checkpoint.  Every
+    loss and grad norm finite, each step's lr equal to ``lr_at`` of its
+    step, the parameters as many as the spec tree's, in bf16, the moments
+    in f32."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import leaves
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_TRAIN_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    t0 = time.perf_counter()
+    run = train.train(cfg, steps=LM_TRAIN_STEPS, batch=LM_TRAIN_BATCH, seq=LM_TRAIN_SEQ,
+                      ckpt_dir=None, seed=0, device=dev, log=lines.append)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    params = dict(leaves(run.params))
+    n = sum(t.numel() for t in params.values())
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_SEQ
+    lr_want = [float(adamw.lr_at(torch.tensor(r.step + 1, dtype=torch.int32, device=dev),
+                                 run.opt_cfg)) for r in run.records]
+    steps_ = [{"step": r.step, "loss": r.loss, "grad_norm": r.grad_norm, "lr": r.lr,
+               "wall_s": r.wall_s, "tokens_per_s": tokens / r.wall_s} for r in run.records]
+    steady = [r.wall_s for r in run.records[1:]]
+    row = {"arch": cfg.name, "n_params": n, "n_params_spec": M.n_params(cfg),
+           "param_dtype": cfg.param_dtype, "state_dtype": run.opt_cfg.state_dtype,
+           "remat": cfg.remat, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "accum": 1,
+           "steps": steps_, "lr_at": lr_want, "wall_s": wall,
+           "step_s_median_after_first": statistics.median(steady),
+           "tokens_per_s_median_after_first": tokens / statistics.median(steady),
+           "peak_mem_bytes": peak, "log": lines}
+    dtypes = ({str(t.dtype) for t in params.values()},
+              {str(t.dtype) for _, t in leaves(run.opt.m)} | {str(t.dtype) for _, t in
+                                                              leaves(run.opt.v)})
+    finite = all(np.isfinite(r.loss) and np.isfinite(r.grad_norm) for r in run.records)
+    del run, params
+    torch.cuda.empty_cache()
+    if n != M.n_params(cfg) or not finite or [r["lr"] for r in steps_] != lr_want \
+            or dtypes != ({"torch.bfloat16"}, {"torch.float32"}) \
+            or len(steps_) != LM_TRAIN_STEPS:
+        fail(f"lm_train ({cfg.name}): {n} parameters (spec {M.n_params(cfg)}), finite "
+             f"{finite}, lr {[r['lr'] for r in steps_]} against lr_at {lr_want}, dtypes "
+             f"{dtypes}, {len(steps_)} steps")
+    return row
+
+
+def lm_train_remat(torch, dev):
+    """(b) At the full config's width cut to 4 layers, the gradients of one
+    batch with ``remat="block"`` and with ``"none"`` (``value_and_grad``'s
+    body, inlined to read the memory between its halves): the memory the
+    autograd graph holds after the forward and the peak of the forward and
+    backward both lower with ``"block"``, the losses equal.  (The peak comes
+    at the end of the backward, where the tied embedding's two gradients
+    meet and no activation is left, so the peaks part by little; the
+    memory held after the forward is the activations remat drops.)"""
+    import dataclasses
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.lm_pipeline import SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import leaves
+
+    cut = dataclasses.replace(get_config(LM_TRAIN_ARCH), n_layers=LM_CHECK_LAYERS)
+    params = M.init(cut, 0, dev).params()
+    flat = [p for _, p in leaves(params)]
+    b = SyntheticLM(cut.vocab, LM_TRAIN_SEQ, LM_TRAIN_BATCH, seed=1).batch_at(0)
+    batch = train.make_batch(cut, b, 0, 0, dev)
+    row = {"n_layers": LM_CHECK_LAYERS, "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ}
+    for remat in ("block", "none"):
+        cfg = dataclasses.replace(cut, remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            loss = M.loss_fn(cfg, params, batch)
+            held = torch.cuda.memory_allocated() - base
+            grads = torch.autograd.grad(loss, flat)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row[remat] = {"loss": float(loss.detach()), "held_after_forward_bytes": held,
+                      "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                      "peak_above_params_bytes": torch.cuda.max_memory_allocated() - base,
+                      "wall_s": wall}
+        del loss, grads
+    del params, flat
+    torch.cuda.empty_cache()
+    blk, none = row["block"], row["none"]
+    if not (blk["peak_mem_bytes"] < none["peak_mem_bytes"]
+            and blk["held_after_forward_bytes"] < none["held_after_forward_bytes"]
+            and blk["loss"] == none["loss"]):
+        fail(f"lm_train (remat at {LM_CHECK_LAYERS} layers): block {blk}, none {none}")
+    return row
+
+
+def lm_train_parity_run(torch, dev, arch, accum=1):
+    """(c) One train step of a ``smoke()`` config in f32 on the card and on
+    the CPU from the same weights and batch, to the CPU tests' bounds
+    (``tests/torch_lm_train_parity.check_train_step``): the loss, the grad
+    norm, each leaf's gradient (as a share of its max |g|), the parameters
+    after the step within 2 lr (Adam's first-step sign where |g| is rounding
+    noise) with under 1 % of their elements beyond 1e-6, and the moments m
+    and v within 2x the gradient's bound of each leaf's max."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.models.layers import leaves, map_tree
+    from repro_torch.optim import adamw
+
+    cfg = get_config(arch, smoke=True)
+    B, T = 2 * accum, 8
+    rng = np.random.default_rng(0)
+    b = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (B, T)).astype(np.int32)),
+         "loss_mask": torch.from_numpy(rng.random((B, T - 1)) < 0.8)}
+    if cfg.family == "vlm":
+        b["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.vision_tokens, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        b["frames"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.enc_context, cfg.d_model)).astype(np.float32))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    p_cpu = M.init(cfg, 0, "cpu").params()
+    p_card = map_tree(lambda a: a.detach().to(dev, copy=True), p_cpu)  # before the CPU step
+    out = {}
+    for where, params in (("cpu", p_cpu), ("cuda", p_card)):
+        batch = {k: v.to(params["embed"].device) for k, v in b.items()}
+        loss, grads = steps.accumulated_grads(cfg, params, batch, accum)
+        grads_host = {k: g.float().cpu() for k, g in leaves(grads)}
+        params, opt, m = adamw.update(grads, adamw.init(params, opt_cfg), params, opt_cfg)
+        out[where] = {"loss": float(loss), "grad_norm": float(m["grad_norm"]),
+                      "lr": float(m["lr"]), "grads": grads_host,
+                      "params": {k: t.detach().cpu() for k, t in leaves(params)},
+                      "m": {k: t.cpu() for k, t in leaves(opt.m)},
+                      "v": {k: t.cpu() for k, t in leaves(opt.v)}}
+    cpu, card = out["cpu"], out["cuda"]
+    grad_rel = LM_TRAIN_COND.get(arch, LM_TRAIN_GRAD_REL)
+    norm_rel = LM_TRAIN_COND.get(arch, LM_TRAIN_NORM_REL)
+
+    def worst_share(name):
+        return max(float((card[name][k] - t).abs().max()) / max(float(t.abs().max()), 1e-30)
+                   for k, t in cpu[name].items())
+
+    dparam, beyond, total = 0.0, 0, 0
+    for k, t in cpu["params"].items():
+        d = (card["params"][k].double() - t.double()).abs()
+        dparam = max(dparam, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        total += d.numel()
+    row = {"accum": accum, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
+           "loss_diff": abs(card["loss"] - cpu["loss"]),
+           "grad_norm_rel_diff": abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"],
+           "worst_grad_share": worst_share("grads"), "max_param_diff": dparam,
+           "param_share_beyond_1e-6": beyond / total, "worst_m_share": worst_share("m"),
+           "worst_v_share": worst_share("v"), "lr": cpu["lr"],
+           "grad_tolerance": grad_rel, "norm_tolerance": norm_rel}
+    if not (row["loss_diff"] <= LM_TRAIN_LOSS_TOL and row["grad_norm_rel_diff"] <= norm_rel
+            and row["worst_grad_share"] <= grad_rel and dparam <= 2 * cpu["lr"] * (1 + 1e-4)
+            and row["param_share_beyond_1e-6"] < LM_TRAIN_PARAM_SHARE
+            and row["worst_m_share"] <= 2 * grad_rel and row["worst_v_share"] <= 2 * grad_rel):
+        fail(f"lm_train ({arch} smoke, accum {accum}): the card's step differs from the "
+             f"CPU's: {row}")
+    return row
+
+
+def lm_train_memorize(torch, dev, tmp):
+    """(d) ``tests/test_checkpoint_train.py``'s drill on the card: llama
+    smoke in f32, lr 3e-3, 2 warmup steps of 60, accum 2, one fixed batch,
+    25 steps: the last loss below 0.8 of the first; the checkpoint after
+    step 9, restored by the port's manager onto a ``meta`` template,
+    replays step 10's loss within 1e-4."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    cfg = get_config(LM_TRAIN_ARCH, smoke=True)
+    params = M.init(cfg, 0, dev).params()
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=60)
+    opt = adamw.init(params, opt_cfg)
+    step_fn = steps.make_train_step(cfg, opt_cfg, accum=2)
+    fixed = np.random.default_rng(0).integers(0, cfg.vocab, size=(4, 32))
+    batch = {"tokens": torch.from_numpy(fixed).to(dev)}
+    mgr = CheckpointManager(Path(tmp) / "lm_memo", keep=2)
+    losses = []
+    t0 = time.perf_counter()
+    for it in range(LM_MEMO_STEPS):
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        if it == LM_MEMO_SAVE_AT:
+            mgr.save(it, {"params": params, "opt": opt}, extra={"it": it})
+    wall = time.perf_counter() - t0
+    abstract = M.abstract(cfg)
+    restored, extra = mgr.restore({"params": abstract, "opt": adamw.init(abstract, opt_cfg)},
+                                  device=dev)
+    _, _, m2 = step_fn(restored["params"], restored["opt"], batch)
+    replay = float(m2["loss"])
+    want = losses[LM_MEMO_SAVE_AT + 1]
+    row = {"losses": losses, "wall_s": wall, "replayed_loss": replay, "original_loss": want,
+           "replay_diff": abs(replay - want), "replay_bit_equal": replay == want,
+           "extra": extra}
+    if not (losses[-1] < 0.8 * losses[0] and abs(replay - want) < 1e-4
+            and extra == {"it": LM_MEMO_SAVE_AT}):
+        fail(f"lm_train (memorize and resume): {row}")
+    return row
+
+
+def phase_lm_train(torch, dev, smi, tmp):
+    """The LM substrate's training path on the card: (a) the full config
+    through the launcher's loop, (b) remat read, (c) every smoke config's
+    step card against CPU (llama also at accum 2), (d) memorize and resume
+    through the port's checkpoint manager.  Plain PyTorch throughout: the
+    training half reaches no ``pl.pallas_call`` in the reference."""
+    from repro_torch.configs.registry import all_archs
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 compares as f32
+    t0 = time.perf_counter()
+    full = lm_train_full(torch, dev)
+    remat = lm_train_remat(torch, dev)
+    parity = {arch: lm_train_parity_run(torch, dev, arch) for arch in all_archs()}
+    parity[LM_TRAIN_ARCH + " accum 2"] = lm_train_parity_run(torch, dev, LM_TRAIN_ARCH, 2)
+    memo = lm_train_memorize(torch, dev, tmp)
+    emit({"phase": "lm_train", "nvidia_smi": smi,
+          "tolerance": {"loss": LM_TRAIN_LOSS_TOL, "grad_share": LM_TRAIN_GRAD_REL,
+                        "grad_norm": LM_TRAIN_NORM_REL, "conditioned": LM_TRAIN_COND,
+                        "params_after_step": "2 lr",
+                        "param_share_beyond_1e-6": LM_TRAIN_PARAM_SHARE,
+                        "moments": "2 x grad_share"},
+          "full": full, "remat": remat, "card_vs_cpu": parity, "memorize": memo,
+          "wall_s": time.perf_counter() - t0})
+
+
 def phase_profile(torch, dev, dense, serve_run, store):
     """The main path, the cluster path with B1 and with B2, the store mine
     (its copies to the card among the device events) and the serve replay
@@ -2312,6 +2585,7 @@ def main() -> None:
     cluster_obs_launches = phase_cluster_obs(torch, dev, dense, want, smi, store_dir.name)
     rank_launches = phase_ranks(dev, want, store_want, smi, store_dir.name)
     phase_lm_serve(torch, dev, smi)
+    phase_lm_train(torch, dev, smi, store_dir.name)
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty

@@ -33,8 +33,9 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generator(device: torch.device, seed: int, stream: int) -> torch.Generator:
+def generator(device: torch.device, seed: int, *stream: int) -> torch.Generator:
     """A generator on ``device`` for one stream of a run's draws, derived from
-    the run seed (one stream per miner, or per use)."""
-    state = np.random.SeedSequence([seed & 0xFFFFFFFF, stream]).generate_state(1)[0]
+    the run seed (one stream per miner, or per use; a stream may take more
+    than one number, such as a use and a step)."""
+    state = np.random.SeedSequence([seed & 0xFFFFFFFF, *stream]).generate_state(1)[0]
     return torch.Generator(device=device).manual_seed(int(state))

@@ -3,8 +3,9 @@
 The port of the JAX package's ``models/layers.py``.  Every model module
 builds a nested dict of :class:`ParamSpec` (shape + logical axes + init
 law); from that one tree come the initialised parameters
-(:func:`init_params`) and the analytic count (:func:`param_count`, no
-allocation).  The leaves are visited in the reference's order (``jax.tree``
+(:func:`init_params`), their ``meta`` template (:func:`abstract_params`)
+and the analytic count (:func:`param_count`); the last two allocate
+nothing.  The leaves are visited in the reference's order (``jax.tree``
 flattens a dict by sorted key), one ``torch.Generator`` draws them, so the
 init laws are the reference's and the draws the port's own.
 
@@ -51,6 +52,17 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], 
         yield path, tree
 
 
+def tree_of(items) -> Dict:
+    """The nested dict of ``(path, leaf)`` pairs (as ``leaves`` yields them)."""
+    out: Dict = {}
+    for path, leaf in items:
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
 def map_tree(fn, tree):
     """``fn`` applied to every leaf of a nested dict."""
     if isinstance(tree, dict):
@@ -77,13 +89,14 @@ def init_params(specs, generator: torch.Generator, dtype: torch.dtype = torch.bf
     normal leaves ``N(0, 1)·scale`` drawn in f32 from ``generator`` (which
     lives on ``device``), then cast to ``dtype``."""
     device = torch.device(device)
-    out: Dict = {}
-    for path, spec in leaves(specs):
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = _leaf_init(spec, generator, dtype, device)
-    return out
+    return tree_of((path, _leaf_init(spec, generator, dtype, device))
+                   for path, spec in leaves(specs))
+
+
+def abstract_params(specs, dtype: torch.dtype = torch.bfloat16):
+    """The tree of ``specs`` as ``meta`` tensors of ``dtype``: shapes and
+    dtypes, nothing allocated."""
+    return map_tree(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
 
 
 def param_count(specs) -> int:

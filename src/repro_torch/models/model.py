@@ -18,15 +18,23 @@ tensors in the reference's tree layout, layer stacks ``[L, ...]``):
 ``decode_step(cfg, params, cache, tokens, pos)`` → (logits, cache).
 
 Where the reference scans over the stacked layers, the port loops over them
-in Python.  Decode caches are updated in place and returned.  ``remat``
-only matters for a backward pass and is not read here.
+in Python: ``forward`` unbinds each stacked leaf once (so the backward pass
+stacks the layers' gradients in one op), decode indexes a layer at a time.
+Decode caches are updated in place (under ``no_grad``) and returned.
+With ``cfg.remat == "block"`` and gradients enabled, each block runs under
+``torch.utils.checkpoint`` (non-reentrant), as the reference's
+``jax.checkpoint`` of the scan body; the hybrid super-block checkpoints
+each sublayer instead.  ``abstract(cfg)`` is the parameter tree as ``meta``
+tensors, a restore template that allocates nothing.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
@@ -36,6 +44,7 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     ParamSpec,
+    abstract_params,
     cross_entropy,
     einsum,
     init_params,
@@ -140,9 +149,15 @@ def n_params(cfg: ModelConfig) -> int:
     return param_count(specs(cfg))
 
 
+def abstract(cfg: ModelConfig):
+    """The parameter tree as ``meta`` tensors in ``cfg.param_dtype``."""
+    return abstract_params(specs(cfg), dtype=torch_dtype(cfg.param_dtype))
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as modules and parameters, one level a module:
-    ``state_dict`` keys are the reference's tree paths (``blocks.attn.wq``)."""
+    ``state_dict`` keys are the reference's tree paths (``blocks.attn.wq``).
+    The parameters take gradients; serving runs under ``no_grad``."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -150,7 +165,7 @@ class ParamTree(nn.Module):
             if isinstance(v, dict):
                 self.add_module(k, ParamTree(v))
             else:
-                self.register_parameter(k, nn.Parameter(v, requires_grad=False))
+                self.register_parameter(k, nn.Parameter(v))
 
     def tree(self) -> Dict[str, Any]:
         out: Dict[str, Any] = {k: p for k, p in self._parameters.items()}
@@ -221,32 +236,71 @@ def _ssm_block(cfg: ModelConfig, p, x):
     return x + m2.mamba2_forward(p["mixer"], h, cfg.ssm)
 
 
-def _hybrid_ffn(cfg: ModelConfig, p, x, i: int, di: int, oi: int):
-    """The FFN sublayer after mixer ``i`` of a super-block: MoE on odd ones."""
+def _hybrid_moe(cfg: ModelConfig, sub, ln, h):
+    return moe_mod.moe_forward(sub, rms_norm(h, ln, cfg.norm_eps), cfg.moe)[0]
+
+
+def _hybrid_mlp(cfg: ModelConfig, sub, ln, h):
+    return mlp_forward(rms_norm(h, ln, cfg.norm_eps), sub)
+
+
+def _hybrid_ffn(x, i: int, di: int, oi: int, at, moe_fn, mlp_fn):
+    """The FFN sublayer after mixer ``i`` of a super-block: MoE after odd
+    mixers, an MLP after even ones.  ``at(kind, j)`` gives the ``j``-th
+    ``"moe"``/``"mlp"`` sublayer's parameters and norm; ``moe_fn``/``mlp_fn``
+    are ``_hybrid_moe``/``_hybrid_mlp`` (under remat on the forward path)."""
     if i % 2 == 1:
-        a = rms_norm(x, p["moe_ln"][oi], cfg.norm_eps)
-        y, _aux = moe_mod.moe_forward(_layer(p["moe"], oi), a, cfg.moe)
-        return x + y, di, oi + 1
-    a = rms_norm(x, p["mlp_ln"][di], cfg.norm_eps)
-    return x + mlp_forward(a, _layer(p["mlp"], di)), di + 1, oi
+        return x + moe_fn(*at("moe", oi), x), di, oi + 1
+    return x + mlp_fn(*at("mlp", di), x), di + 1, oi
+
+
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under a non-reentrant checkpoint when ``cfg.remat == "block"``
+    and gradients are on: its activations are recomputed in the backward."""
+    if cfg.remat != "block" or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _unbind(blocks) -> List[Dict[str, Any]]:
+    """The layers of a stacked tree, each leaf unbound once: views whose
+    gradients the backward stacks in one op (indexing a layer at a time
+    would zero-fill a gradient the size of the stack for every layer)."""
+    parts = map_tree(lambda a: a.unbind(0), blocks)
+    return [map_tree(lambda t: t[i], parts) for i in range(_n_stacked(blocks))]
 
 
 def _hybrid_superblock(cfg: ModelConfig, p, x, chunk):
+    """One super-block; with remat each SUBLAYER is checkpointed, as in the
+    reference (a superblock-level checkpoint would keep every mamba
+    sublayer's residuals alive at once)."""
+    eps = cfg.norm_eps
+
+    def attn_sub(pa, ln, h):
+        return attn.gqa_forward(pa, rms_norm(h, ln, eps), cfg.rope_theta, chunk=chunk)
+
+    def mamba_sub(sub, ln, h):
+        return m2.mamba2_forward(sub, rms_norm(h, ln, eps), cfg.ssm)
+
+    attn_sub, mamba_sub = _remat(cfg, attn_sub), _remat(cfg, mamba_sub)
+    moe_fn, mlp_fn = (_remat(cfg, functools.partial(f, cfg)) for f in (_hybrid_moe, _hybrid_mlp))
+    parts = {k: _unbind(p[k]) for k in ("mamba", "mlp", "moe")}
+    lns = {k: p[k + "_ln"].unbind(0) for k in ("mamba", "mlp", "moe")}
     di, oi = 0, 0
     for i in range(cfg.attn_every):
         if i == 0:
-            a = rms_norm(x, p["attn_ln"], cfg.norm_eps)
-            x = x + attn.gqa_forward(p["attn"], a, cfg.rope_theta, chunk=chunk)
+            x = x + attn_sub(p["attn"], p["attn_ln"], x)
         else:
-            a = rms_norm(x, p["mamba_ln"][i - 1], cfg.norm_eps)
-            x = x + m2.mamba2_forward(_layer(p["mamba"], i - 1), a, cfg.ssm)
-        x, di, oi = _hybrid_ffn(cfg, p, x, i, di, oi)
+            x = x + mamba_sub(parts["mamba"][i - 1], lns["mamba"][i - 1], x)
+        x, di, oi = _hybrid_ffn(x, i, di, oi, lambda k, j: (parts[k][j], lns[k][j]),
+                                moe_fn, mlp_fn)
     return x
 
 
 def _run_stack(blocks, x, body):
-    for i in range(_n_stacked(blocks)):
-        x = body(_layer(blocks, i), x)
+    """``body`` over the layers of ``blocks`` (the caller applies remat)."""
+    for p in _unbind(blocks):
+        x = body(p, x)
     return x
 
 
@@ -257,7 +311,7 @@ def _encoder(cfg: ModelConfig, params, frames, chunk=None):
         a = rms_norm(h, p["ln2"], cfg.norm_eps)
         return h + mlp_forward(a, p["mlp"])
 
-    x = _run_stack(params["enc_blocks"], frames, body)
+    x = _run_stack(params["enc_blocks"], frames, _remat(cfg, body))
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -278,13 +332,15 @@ def hidden_states(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             a = rms_norm(h, p["ln2"], cfg.norm_eps)
             return h + mlp_forward(a, p["mlp"])
 
-        x = _run_stack(params["blocks"], x, body)
+        x = _run_stack(params["blocks"], x, _remat(cfg, body))
     elif cfg.family == "ssm":
-        x = _run_stack(params["blocks"], x, lambda p, h: _ssm_block(cfg, p, h))
+        x = _run_stack(params["blocks"], x, _remat(cfg, lambda p, h: _ssm_block(cfg, p, h)))
     elif cfg.family == "hybrid":
+        # each sublayer is checkpointed inside the super-block
         x = _run_stack(params["blocks"], x, lambda p, h: _hybrid_superblock(cfg, p, h, chunk))
     else:
-        x = _run_stack(params["blocks"], x, lambda p, h: _decoder_block(cfg, p, h, chunk))
+        x = _run_stack(params["blocks"], x,
+                       _remat(cfg, lambda p, h: _decoder_block(cfg, p, h, chunk)))
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -309,7 +365,7 @@ def mask_vocab_pad(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(cfg: ModelConfig, params, batch, chunk=None) -> torch.Tensor:
-    """Next-token NLL (forward only).  VLM: loss on text positions only."""
+    """Next-token NLL.  VLM: loss on text positions only."""
     logits = mask_vocab_pad(cfg, forward(cfg, params, batch, chunk))
     tokens = batch["tokens"]
     if cfg.family == "vlm":
@@ -361,6 +417,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     raise ValueError(cfg.family)
 
 
+@torch.no_grad()
 def encode(cfg: ModelConfig, params, frames: torch.Tensor, cache):
     """encdec: run the encoder, put per-layer cross K/V into the cache."""
     enc = _encoder(cfg, params, frames)
@@ -376,10 +433,12 @@ def _layer_cache(cache, i: int):
     return {k: a[i] for k, a in cache.items()}
 
 
+@torch.no_grad()
 def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                 pos: int) -> Tuple[torch.Tensor, Any]:
     """One token a sequence: ``tokens`` [B, 1] at position ``pos`` → masked
-    logits [B, 1, V_padded] and the cache, updated in place."""
+    logits [B, 1, V_padded] and the cache, updated in place (no gradients:
+    the parameters' own do not flow through a cache written in place)."""
     x = params["embed"][tokens]
     blocks = params["blocks"]
     L = _n_stacked(blocks)
@@ -420,7 +479,9 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                     a = rms_norm(x, p["mamba_ln"][i - 1], cfg.norm_eps)
                     y, _ = m2.mamba2_decode_step(_layer(p["mamba"], i - 1), sub_c, a, cfg.ssm)
                 x = x + y
-                x, di, oi = _hybrid_ffn(cfg, p, x, i, di, oi)
+                x, di, oi = _hybrid_ffn(
+                    x, i, di, oi, lambda k, j: (_layer(p[k], j), p[k + "_ln"][j]),
+                    functools.partial(_hybrid_moe, cfg), functools.partial(_hybrid_mlp, cfg))
     elif cfg.family == "encdec":
         for i in range(L):
             p = _layer(blocks, i)

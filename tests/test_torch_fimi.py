@@ -206,7 +206,11 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
         f"assert obs_report.main(['doctor', {healthy!r}, '--history', 'none.jsonl']) == 0\n"
         f"assert ranks.spawn([sys.executable, {str(tmp_path / 'rank_child.py')!r}], 2,"
         " timeout=120) == 0\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "from repro_torch.launch import train\n"
+        "train.main(['--smoke', '--steps', '2', '--batch', '2', '--seq', '16', '--device', 'cpu',"
+        f" '--ckpt-dir', {str(tmp_path / 'ckpt')!r}])\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "print(json.dumps(bad))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
@@ -236,6 +240,9 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
     # the port's obs_report, and a rank's child process (two gloo ranks)
     assert "doctor: 3 finding(s), worst = info" in done.stdout
     assert "backend=gloo" in done.stdout and "rank modules: []" in done.stdout
+    # the LM training launcher: two steps of the smoke config
+    assert "arch=llama3.2-3b-smoke params=0.4M devices=1" in done.stdout
+    assert "step     1 loss" in done.stdout and "done" in lines
     assert json.loads(lines[-1]) == []
 
 
@@ -268,12 +275,14 @@ def test_port_sources_import_neither_jax_nor_repro():
     assert len(files) > 10 and files[-1].exists()
     for module in ("launch/obs_report.py", "launch/ranks.py", "obs/doctor.py",
                    "launch/serve.py", "models/model.py", "models/convert.py",
-                   "configs/registry.py"):
+                   "configs/registry.py", "optim/adamw.py", "data/lm_pipeline.py",
+                   "checkpoint/manager.py", "launch/train.py", "models/steps.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path} imports {mod}"
+            assert top not in ("jax", "jaxlib", "repro", "ml_dtypes"), f"{path} imports {mod}"
         text = path.read_text()
-        for bad in ("import jax", "from jax", "import repro.", "from repro.", "from repro "):
+        for bad in ("import jax", "from jax", "import repro.", "from repro.", "from repro ",
+                    "import ml_dtypes", "from ml_dtypes"):
             assert bad not in text, f"{path} contains {bad!r}"
