@@ -166,6 +166,20 @@ prints one JSON object on a line of its own:
            drill: llama smoke memorizes one batch in 25 steps (last loss
            below 0.8 of the first) and a checkpoint after step 9, restored by
            the port's manager, replays step 10's loss within 1e-4;
+  lm_shard the sharding group, in a child process that is one rank of a
+           one-rank NCCL group (``--lm-shard-child``): llama3.2-3b at its
+           full config (bf16 from seed 0) with its parameters DTensors on a
+           1x1 ``("data", "model")`` mesh under the dry run's layout
+           (``sharding.step_layout``: FSDP rules, ``batch_spec``,
+           ``act_spec``), batch 8 x 128 at accum 2: the step's gradients, a
+           prefill, a decode step (cache under ``cache_shardings``) and a
+           train step, each against the same call on plain tensors on the
+           card within ``lm_train`` (c)'s bounds (logits and cache 1e-4 of
+           their max; each gradient in its parameter's placements); each
+           call's wall, the peak memory, the ops run on replicated copies,
+           the backend; then each full config's bytes a rank (parameters and
+           AdamW state) on the 16x16 production mesh, computed from the
+           shapes;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -1827,6 +1841,49 @@ def lm_train_remat(torch, dev):
     return row
 
 
+def _leaf_share(got, want) -> float:
+    """max |got - want| as a share of max |want|, in f64 on ``got``'s device."""
+    want = want.to(got.device)
+    d = (got.double() - want.double()).abs().max()
+    return float(d) / max(float(want.double().abs().max()), 1e-30)
+
+
+def train_step_diff(want, got, grad_rel, norm_rel):
+    """Two results of one train step from the same weights and batch, each
+    ``{"loss", "grad_norm", "lr", "params", "m", "v"}`` (and ``"grads"``
+    where both have them: ``{path: tensor}``), held to the CPU tests'
+    bounds (``tests/torch_lm_train_parity.check_train_step``): the loss, the
+    grad norm, each leaf's gradient as a share of its max |g|, the
+    parameters after the step within 2 lr (Adam's first-step sign where |g|
+    is rounding noise) with under 1 % of their elements beyond 1e-6, and the
+    moments m and v within 2x the gradient's bound of each leaf's max.
+    Each pair of leaves is compared on ``got``'s device.  Returns the row
+    and whether every bound held."""
+    def worst_share(name):
+        return max(_leaf_share(got[name][k], t) for k, t in want[name].items())
+
+    dparam, beyond, total = 0.0, 0, 0
+    for k, t in want["params"].items():
+        g = got["params"][k]
+        d = (g.detach().double() - t.detach().to(g.device).double()).abs()
+        dparam = max(dparam, float(d.max()))
+        beyond += int((d > 1e-6).sum())
+        total += d.numel()
+    lr = want["lr"]
+    row = {"loss_diff": abs(got["loss"] - want["loss"]),
+           "grad_norm_rel_diff": abs(got["grad_norm"] - want["grad_norm"]) / want["grad_norm"],
+           "max_param_diff": dparam, "param_share_beyond_1e-6": beyond / total,
+           "worst_m_share": worst_share("m"), "worst_v_share": worst_share("v"), "lr": lr,
+           "grad_tolerance": grad_rel, "norm_tolerance": norm_rel}
+    if "grads" in want and "grads" in got:
+        row["worst_grad_share"] = worst_share("grads")
+    ok = (row["loss_diff"] <= LM_TRAIN_LOSS_TOL and row["grad_norm_rel_diff"] <= norm_rel
+          and row.get("worst_grad_share", 0.0) <= grad_rel and dparam <= 2 * lr * (1 + 1e-4)
+          and row["param_share_beyond_1e-6"] < LM_TRAIN_PARAM_SHARE
+          and row["worst_m_share"] <= 2 * grad_rel and row["worst_v_share"] <= 2 * grad_rel)
+    return row, ok
+
+
 def lm_train_parity_run(torch, dev, arch, accum=1):
     """(c) One train step of a ``smoke()`` config in f32 on the card and on
     the CPU from the same weights and batch, to the CPU tests' bounds
@@ -1869,28 +1926,9 @@ def lm_train_parity_run(torch, dev, arch, accum=1):
     cpu, card = out["cpu"], out["cuda"]
     grad_rel = LM_TRAIN_COND.get(arch, LM_TRAIN_GRAD_REL)
     norm_rel = LM_TRAIN_COND.get(arch, LM_TRAIN_NORM_REL)
-
-    def worst_share(name):
-        return max(float((card[name][k] - t).abs().max()) / max(float(t.abs().max()), 1e-30)
-                   for k, t in cpu[name].items())
-
-    dparam, beyond, total = 0.0, 0, 0
-    for k, t in cpu["params"].items():
-        d = (card["params"][k].double() - t.double()).abs()
-        dparam = max(dparam, float(d.max()))
-        beyond += int((d > 1e-6).sum())
-        total += d.numel()
-    row = {"accum": accum, "loss_cpu": cpu["loss"], "loss_card": card["loss"],
-           "loss_diff": abs(card["loss"] - cpu["loss"]),
-           "grad_norm_rel_diff": abs(card["grad_norm"] - cpu["grad_norm"]) / cpu["grad_norm"],
-           "worst_grad_share": worst_share("grads"), "max_param_diff": dparam,
-           "param_share_beyond_1e-6": beyond / total, "worst_m_share": worst_share("m"),
-           "worst_v_share": worst_share("v"), "lr": cpu["lr"],
-           "grad_tolerance": grad_rel, "norm_tolerance": norm_rel}
-    if not (row["loss_diff"] <= LM_TRAIN_LOSS_TOL and row["grad_norm_rel_diff"] <= norm_rel
-            and row["worst_grad_share"] <= grad_rel and dparam <= 2 * cpu["lr"] * (1 + 1e-4)
-            and row["param_share_beyond_1e-6"] < LM_TRAIN_PARAM_SHARE
-            and row["worst_m_share"] <= 2 * grad_rel and row["worst_v_share"] <= 2 * grad_rel):
+    row, ok = train_step_diff(cpu, card, grad_rel, norm_rel)
+    row = {"accum": accum, "loss_cpu": cpu["loss"], "loss_card": card["loss"], **row}
+    if not ok:
         fail(f"lm_train ({arch} smoke, accum {accum}): the card's step differs from the "
              f"CPU's: {row}")
     return row
@@ -1962,6 +2000,208 @@ def phase_lm_train(torch, dev, smi, tmp):
                         "moments": "2 x grad_share"},
           "full": full, "remat": remat, "card_vs_cpu": parity, "memorize": memo,
           "wall_s": time.perf_counter() - t0})
+
+
+# lm_shard: the sharding group on a one-rank NCCL mesh (``--lm-shard-child``)
+LM_SHARD_ACCUM, LM_SHARD_LOGIT_TOL = 2, 1e-4
+
+
+def lm_shard_child(out_path: str) -> None:
+    """The child of ``phase_lm_shard``: one rank of a one-rank NCCL group on
+    a 1x1 ``("data", "model")`` mesh.  llama3.2-3b at full config in bf16
+    from seed 0, its parameters DTensors under the dry run's layout
+    (``sharding.step_layout``: FSDP rules, ``batch_spec`` ``("data",)``,
+    ``act_spec``); the step's gradients (``accumulated_grads``, accum 2), a
+    prefill, a decode step and a train step, each against the same call on
+    the plain parameters on the card, to ``lm_train`` (c)'s bounds.  Writes
+    its row to ``out_path``; a bound missed exits 1."""
+    sys.path.insert(0, str(SRC))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import dtensor
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.models import steps
+    from repro_torch.models.layers import leaves
+    from repro_torch.optim import adamw
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("nccl", device_id=dev, init_method="env://", world_size=1, rank=0)
+    row = {"backend": dist.get_backend(), "arch": LM_TRAIN_ARCH, "batch": LM_TRAIN_BATCH,
+           "seq": LM_TRAIN_SEQ, "accum": LM_SHARD_ACCUM}
+    walls, bad = {}, []
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    try:
+        mesh = mesh_mod.make_debug_mesh(1, 1)
+        cfg = get_config(LM_TRAIN_ARCH)
+        layout = shd.step_layout(M.n_params(cfg), mesh)
+        row["mesh"] = {"axes": list(mesh.mesh_dim_names), "shape": list(mesh.shape)}
+        row["layout"] = {"batch_spec": list(layout.batch_axes), "act_spec": repr(layout.act_spec),
+                         "state_dtype": layout.state_dtype}
+        params = timed("init", lambda: M.init(cfg, 0, dev).params())
+        dparams = timed("distribute", lambda: shd.distribute_tree(params, mesh, layout.rules,
+                                                                   M.axes(cfg)))
+        row["placements"] = {"/".join(k): repr(tuple(v.placements))
+                             for k, v in leaves(dparams)}
+        rng = np.random.default_rng(0)
+        B, T = LM_TRAIN_BATCH, LM_TRAIN_SEQ
+        tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (B, T)).astype(np.int64)).to(dev)
+        batch = {"tokens": tokens}
+
+        def dist_batch(b):
+            return {k: shd.distribute(v, shd.NamedSharding(
+                mesh, shd.batch_spec_for(mesh, layout, tuple(v.shape))), requires_grad=False)
+                for k, v in b.items()}
+
+        torch.cuda.reset_peak_memory_stats()
+        # the step's gradients
+        loss_p, g_p = timed("grads_plain", lambda: steps.accumulated_grads(
+            cfg, params, batch, LM_SHARD_ACCUM))
+        loss_s, g_s = timed("grads_sharded_first", lambda: steps.accumulated_grads(
+            cfg, dparams, dist_batch(batch), LM_SHARD_ACCUM, batch_spec=layout.batch_axes,
+            act_spec=layout.act_spec))
+        g_s = dict(leaves(g_s))
+        same = all(tuple(g_s[k].placements) == tuple(p.placements) for k, p in leaves(dparams))
+        shares = {"/".join(k): _leaf_share(g_s[k].to_local(), g)
+                  for k, g in leaves(g_p)}
+        row["grads"] = {"loss_plain": float(loss_p), "loss_sharded": float(dtensor.full(loss_s)),
+                        "worst_share": max(shares.values()), "placements_equal": same}
+        if abs(row["grads"]["loss_plain"] - row["grads"]["loss_sharded"]) > LM_TRAIN_LOSS_TOL \
+                or row["grads"]["worst_share"] > LM_TRAIN_GRAD_REL or not same:
+            bad.append("grads")
+        del g_p, g_s, loss_s
+        torch.cuda.empty_cache()
+        # prefill and decode on the weights before the step
+        n = B // LM_SHARD_ACCUM
+        pre = {"tokens": tokens[:n]}
+        lp = timed("prefill_plain", lambda: steps.make_prefill_step(cfg)(params, pre))
+        ls = timed("prefill_sharded", lambda: steps.make_prefill_step(
+            cfg, act_spec=layout.act_spec)(dparams, dist_batch(pre)))
+        row["prefill_share"] = _leaf_share(dtensor.full(ls), lp)
+        cache_p = M.init_cache(cfg, n, T + 8, params["embed"].dtype, dev)
+        cache_s = shd.distribute_like(M.init_cache(cfg, n, T + 8, params["embed"].dtype, dev),
+                                      shd.cache_shardings(cache_p, mesh))
+        tok = shd.NamedSharding(mesh, shd.data_spec(mesh, n, 2))
+        serve = steps.make_serve_step(cfg)
+        dp, _ = timed("decode_plain", lambda: serve(params, cache_p, tokens[:n, :1], 0))
+        ds, cache_s = timed("decode_sharded", lambda: serve(
+            dparams, cache_s, shd.distribute(tokens[:n, :1], tok, requires_grad=False), 0))
+        row["decode_share"] = _leaf_share(dtensor.full(ds), dp)
+        row["cache_share"] = max(_leaf_share(dtensor.full(cache_s[k]), c)
+                                 for k, c in cache_p.items())
+        if max(row["prefill_share"], row["decode_share"], row["cache_share"]) \
+                > LM_SHARD_LOGIT_TOL:
+            bad.append("prefill/decode")
+        del lp, ls, dp, ds, cache_p, cache_s
+        # the train step, plain then sharded; the plain moments wait on the host
+        opt_cfg = adamw.AdamWConfig(state_dtype=layout.state_dtype)
+        opt = adamw.init(params, opt_cfg)
+        params, opt, m_p = timed("train_step_plain", lambda: steps.make_train_step(
+            cfg, opt_cfg, accum=LM_SHARD_ACCUM)(params, opt, batch))
+        host_m = timed("moments_to_host", lambda: {k: t.cpu() for k, t in leaves(opt.m)})
+        host_v = {k: t.cpu() for k, t in leaves(opt.v)}
+        del opt
+        torch.cuda.empty_cache()
+        dopt = adamw.init(dparams, opt_cfg)
+        dparams, dopt, m_s = timed("train_step_sharded", lambda: steps.make_train_step(
+            cfg, opt_cfg, accum=LM_SHARD_ACCUM, batch_spec=layout.batch_axes,
+            act_spec=layout.act_spec)(dparams, dopt, dist_batch(batch)))
+        sh, dm, dv = dict(leaves(dparams)), dict(leaves(dopt.m)), dict(leaves(dopt.v))
+        plain = {"loss": float(m_p["loss"]), "grad_norm": float(m_p["grad_norm"]),
+                 "lr": float(m_p["lr"]), "params": dict(leaves(params)), "m": host_m,
+                 "v": host_v}
+        local = {"loss": float(m_s["loss"]), "grad_norm": float(m_s["grad_norm"]),
+                 "lr": float(m_s["lr"]), "params": {k: sh[k].to_local() for k in sh},
+                 "m": {k: dm[k].to_local() for k in dm}, "v": {k: dv[k].to_local() for k in dv}}
+        ts, ok = train_step_diff(plain, local, LM_TRAIN_GRAD_REL, LM_TRAIN_NORM_REL)
+        row["train_step"] = {"loss_plain": plain["loss"], "loss_sharded": local["loss"],
+                             "grad_norm_plain": plain["grad_norm"],
+                             "grad_norm_sharded": local["grad_norm"],
+                             "lr_sharded": local["lr"], **ts}
+        if not (ok and plain["lr"] == local["lr"]):
+            bad.append("train_step")
+        row.update(walls_s=walls, peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                   replicated_ops=dtensor.replications(), failed=bad)
+    finally:
+        dist.destroy_process_group()
+        Path(out_path).write_text(json.dumps(row))
+    if bad:
+        sys.exit(1)
+
+
+def planned_bytes_per_rank():
+    """Each full config's parameters plus AdamW state (m, v in the layout's
+    state dtype, the step) on one rank of the 16x16 production mesh under
+    the dry run's layout: computed from the shapes (``meta`` tensors), no
+    rank holds them."""
+    from repro_torch.configs.registry import all_archs, get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import map_tree, torch_dtype
+
+    import torch
+
+    m = mesh_mod.production_shape()
+    out = {}
+    for arch in all_archs():
+        cfg = get_config(arch)
+        layout = shd.step_layout(M.n_params(cfg), m)
+        tmpl = M.abstract(cfg)
+        sh = shd.tree_shardings(tmpl, M.axes(cfg), m, layout.rules)
+        params = shd.bytes_per_rank(tmpl, sh)
+        state_dt = torch_dtype(layout.state_dtype)
+        moments = shd.bytes_per_rank(map_tree(
+            lambda t: torch.empty(t.shape, dtype=state_dt, device="meta"), tmpl), sh)
+        out[arch] = {"n_params": M.n_params(cfg), "state_dtype": layout.state_dtype,
+                     "params_bytes": params, "adamw_bytes": 2 * moments + 4,
+                     "total_bytes": params + 2 * moments + 4}
+    return out
+
+
+def phase_lm_shard(torch, dev, smi, tmp):
+    """The sharding group on the card: ``lm_shard_child`` in a child process
+    (one rank of a one-rank NCCL group: one H100 admits a world of one),
+    while this process frees the card's cache; then each full config's
+    planned bytes a rank on the 16x16 production mesh, from the shapes."""
+    from repro_torch.launch import ranks
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = Path(tmp) / "lm_shard.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC), RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(ranks._free_port()))
+    t0 = time.perf_counter()
+    with open(Path(tmp) / "lm_shard.err", "w") as err:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--lm-shard-child",
+                               str(out)], cwd=ROOT, env=env, stderr=err, timeout=300)
+    wall = time.perf_counter() - t0
+    row = json.loads(out.read_text()) if out.exists() else {}
+    if proc.returncode != 0 or row.get("failed") or row.get("backend") != "nccl":
+        tail = (Path(tmp) / "lm_shard.err").read_text()[-3000:]
+        fail(f"lm_shard: exit {proc.returncode}, {json.dumps(row)[:3000]}; stderr: {tail}")
+    emit({"phase": "lm_shard", "nvidia_smi": smi,
+          "tolerance": {"loss": LM_TRAIN_LOSS_TOL, "grad_share": LM_TRAIN_GRAD_REL,
+                        "grad_norm": LM_TRAIN_NORM_REL, "params_after_step": "2 lr",
+                        "param_share_beyond_1e-6": LM_TRAIN_PARAM_SHARE,
+                        "moments": "2 x grad_share", "logits_and_cache": LM_SHARD_LOGIT_TOL},
+          **row, "child_wall_s": wall,
+          "planned_bytes_per_rank_16x16": {
+              "note": "computed from the shapes under the dry run's layout, not measured",
+              **planned_bytes_per_rank()}})
 
 
 def phase_profile(torch, dev, dense, serve_run, store):
@@ -2510,6 +2750,9 @@ def phase_store(torch, dev, sms, smi, tmp):
 def main() -> None:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from the root of a checkout")
+    if sys.argv[1:2] == ["--lm-shard-child"]:
+        lm_shard_child(sys.argv[2])
+        return
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -2586,6 +2829,7 @@ def main() -> None:
     rank_launches = phase_ranks(dev, want, store_want, smi, store_dir.name)
     phase_lm_serve(torch, dev, smi)
     phase_lm_train(torch, dev, smi, store_dir.name)
+    phase_lm_shard(torch, dev, smi, store_dir.name)
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty

@@ -18,12 +18,17 @@ other:
     directories are removed at the next save;
   * **retention**: the newest ``keep`` checkpoints stay.
 
-``restore(template, step, device)`` takes a tree of tensors (``meta``
-tensors from ``models.model.abstract`` do: nothing is allocated for them)
-and returns the same tree read from disk, each leaf checked against the
-template's shape (``ValueError``), cast to its dtype and put on ``device``
-(CUDA unless the caller names another), where the reference takes
-``ShapeDtypeStruct``s and shardings.
+``restore(template, step, device, shardings)`` takes a tree of tensors
+(``meta`` tensors from ``models.model.abstract`` do: nothing is allocated
+for them) and returns the same tree read from disk, each leaf checked
+against the template's shape (``ValueError``), cast to its dtype and put on
+``device`` (CUDA unless the caller names another), where the reference
+takes ``ShapeDtypeStruct``s.  With ``shardings`` (the reference's re-shard
+onto a mesh) each leaf becomes a DTensor: a tree of the same layout of
+``distributed.sharding.NamedSharding``s, each a spec on a ``DeviceMesh``
+(``tree_shardings``; ``replicated(mesh)`` for the step), a ``None`` leaf
+staying a plain tensor.  Every rank reads the whole array and keeps its
+shard, as the reference's ``device_put``; the format on disk is the same.
 """
 from __future__ import annotations
 
@@ -153,11 +158,14 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, step: Optional[int] = None,
-                device: str | torch.device | None = None) -> Tuple[Any, Dict]:
+                device: str | torch.device | None = None,
+                shardings=None) -> Tuple[Any, Dict]:
         """The tree of ``template`` read from checkpoint ``step`` (the latest
         when ``None``) onto ``device``, and the manifest's ``extra``.  A
         leaf whose saved shape differs from the template's raises
-        ``ValueError``; a leaf of another dtype is cast to the template's."""
+        ``ValueError``; a leaf of another dtype is cast to the template's.
+        ``shardings``: a tree like ``template`` of ``NamedSharding``s onto
+        which each leaf is distributed (module docstring)."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -166,13 +174,20 @@ class CheckpointManager:
         path = self.dir / f"step_{step:010d}"
         manifest = json.loads((path / "manifest.json").read_text())
         dtypes = manifest.get("dtypes", {})
+        flat_shard = flatten(shardings) if shardings is not None else {}
         with np.load(path / "host0.npz") as data:
             def load(key, tmpl):
                 arr = data[key]
                 t = _to_tensor(arr, dtypes.get(key, str(arr.dtype)))
                 if tuple(t.shape) != tuple(tmpl.shape):
                     raise ValueError(f"{key}: shape {tuple(t.shape)} != {tuple(tmpl.shape)}")
-                return t.to(device=dev, dtype=tmpl.dtype)
+                t = t.to(device=dev, dtype=tmpl.dtype)
+                sharding = flat_shard.get(key)
+                if sharding is None:
+                    return t
+                from repro_torch.distributed.sharding import distribute
+
+                return distribute(t, sharding, requires_grad=False)
 
             state = map_with_path(load, template)
         return state, manifest["extra"]

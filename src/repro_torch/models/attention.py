@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensor import write_at
 from repro_torch.models.layers import ParamSpec, apply_rope, einsum
 
 NEG_INF = -1e30
@@ -159,8 +160,8 @@ def gqa_decode_step(
     at = torch.tensor([pos], device=x.device)
     q = apply_rope(q, at, rope_theta)
     k = apply_rope(k, at, rope_theta)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
+    write_at(cache["k"], {1: pos}, k[:, 0])
+    write_at(cache["v"], {1: pos}, v[:, 0])
     ctx = sdpa_causal(q, cache["k"], cache["v"], at, k_valid_len=pos + 1)
     return einsum("bthk,hkd->btd", ctx, p["wo"]), cache
 

@@ -3,9 +3,10 @@
 The port of the JAX package's ``models/layers.py``.  Every model module
 builds a nested dict of :class:`ParamSpec` (shape + logical axes + init
 law); from that one tree come the initialised parameters
-(:func:`init_params`), their ``meta`` template (:func:`abstract_params`)
-and the analytic count (:func:`param_count`); the last two allocate
-nothing.  The leaves are visited in the reference's order (``jax.tree``
+(:func:`init_params`), their ``meta`` template (:func:`abstract_params`),
+the logical-axis tree (:func:`axes_tree`) and the analytic count
+(:func:`param_count`); the last three allocate nothing.  The leaves are
+visited in the reference's order (``jax.tree``
 flattens a dict by sorted key), one ``torch.Generator`` draws them, so the
 init laws are the reference's and the draws the port's own.
 
@@ -21,6 +22,8 @@ from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed import dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +102,12 @@ def abstract_params(specs, dtype: torch.dtype = torch.bfloat16):
     return map_tree(lambda s: torch.empty(s.shape, dtype=dtype, device="meta"), specs)
 
 
+def axes_tree(specs):
+    """The logical-axis tree of a spec tree (one tuple of names a leaf),
+    which ``distributed.sharding`` maps onto mesh axes."""
+    return map_tree(lambda s: s.axes, specs)
+
+
 def param_count(specs) -> int:
     return int(sum(math.prod(s.shape) for _, s in leaves(specs)))
 
@@ -116,10 +125,12 @@ def stacked(spec_dict: Dict[str, Any], n: int, axis_name: str = "layers"):
 
 def einsum(eq: str, *xs: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` with the operands promoted to one dtype first, as
-    ``jnp.einsum`` promotes them."""
+    ``jnp.einsum`` promotes them; on DTensors, ``distributed.dtensor.einsum``."""
     dt = xs[0].dtype
     for x in xs[1:]:
         dt = torch.promote_types(dt, x.dtype)
+    if any(dtensor.is_dtensor(x) for x in xs):
+        return dtensor.einsum(eq, *(x.to(dt) for x in xs))
     return torch.einsum(eq, *(x.to(dt) for x in xs))
 
 
@@ -180,8 +191,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None) -> torc
     """Mean token NLL; logits [..., V] (softmax in f32), labels int [...]."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    nll = logz - gold
+    # the difference is taken before the last dim is dropped: over a vocab
+    # sharded as a DTensor, the gather's pending masked sum must meet the
+    # shape it was taken at
+    gold = torch.gather(logits, -1, labels[..., None].long())
+    nll = (logz[..., None] - gold)[..., 0]
     if mask is None:
         return nll.mean()
     mask = mask.float()

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.distributed.dtensor import along, gather_dim, write_at
 from repro_torch.models.layers import ParamSpec, einsum, rms_norm
 
 F32 = torch.float32
@@ -65,7 +66,10 @@ def _project(p, xin, s: SSMConfig):
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv over time: xbc [B, T, D], w [width, D]."""
     width = w.shape[0]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    # zeros concatenated in the input's own placements, not ``F.pad``: on a
+    # DTensor the pad redistributes, and torch 2.11's planner raises on it
+    # over a 2-D mesh
+    pad = torch.cat([xbc.new_zeros((xbc.shape[0], width - 1, xbc.shape[2])), xbc], dim=1)
     T = xbc.shape[1]
     out = sum(pad[:, i: i + T, :] * w[i][None, None, :] for i in range(width))
     return F.silu(out + b)
@@ -74,7 +78,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """Lower-triangular segment sums: out[..., i, j] = Σ_{j<k≤i} x[..., k]."""
     T = x.shape[-1]
-    cs = torch.cumsum(x, dim=-1)
+    cs = along(lambda t: torch.cumsum(t, dim=-1), x, -1)
     out = cs[..., :, None] - cs[..., None, :]
     mask = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
     return torch.where(mask, out, -torch.inf)
@@ -102,7 +106,7 @@ def ssd_chunked(
     Bc = B_.reshape(Bb, nc, chunk, G, N)
     Cc = C_.reshape(Bb, nc, chunk, G, N)
     dA = dtc * A[None, None, None, :]                        # [B,nc,Q,H]
-    dA_cs = torch.cumsum(dA, dim=2)
+    dA_cs = along(lambda t: torch.cumsum(t, dim=2), dA, 2)
 
     # intra-chunk (quadratic in Q), grouped: H = G×rep as two indices
     Lh = torch.exp(
@@ -111,14 +115,14 @@ def ssd_chunked(
     CB = einsum("bnqgs,bnkgs->bngqk", Cc, Bc)                 # [B,nc,G,Q,K]
     xdt = xc * dtc[..., None]                                # [B,nc,Q,H,P]
     xdt_g = xdt.reshape(Bb, nc, chunk, G, rep, P)
-    y_diag = torch.einsum(
+    y_diag = einsum(
         "bngqk,bngrqk,bnkgrp->bnqgrp", CB.to(F32), Lh.to(F32), xdt_g.to(F32),
     ).reshape(Bb, nc, chunk, H, P)
 
     # chunk states (B broadcast from G groups to H heads by a grouped einsum)
     decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)   # [B,nc,Q,H]
     xdtd_g = (xdt * decay_states[..., None]).reshape(Bb, nc, chunk, G, rep, P)
-    states = torch.einsum(
+    states = einsum(
         "bnqgs,bnqgrp->bngrps", Bc.to(F32), xdtd_g.to(F32),
     ).reshape(Bb, nc, H, P, N)
 
@@ -207,10 +211,11 @@ def mamba2_decode_step(
         "bhp,bhs->bhps", xh * dt[..., None], Bh.to(F32))
     y = einsum("bhps,bhs->bhp", h, Ch.to(F32))
     y = y + xh * p["D"][None, :, None]
+    y = gather_dim("mamba.decode_heads", y, 2, over=1)    # P into (H, P)
     y = y.reshape(Bb, 1, d_inner).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     out = einsum("btk,kd->btd", y, p["out_proj"])
-    cache["conv_x"].copy_(win_x[:, 1:])
-    cache["conv_bc"].copy_(win_bc[:, 1:])
-    cache["ssm"].copy_(h)
+    write_at(cache["conv_x"], {}, win_x[:, 1:])
+    write_at(cache["conv_bc"], {}, win_bc[:, 1:])
+    write_at(cache["ssm"], {}, h)
     return out, cache

@@ -14,6 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.distributed.dtensor import write_at
 from repro_torch.models.attention import NEG_INF, chunked_causal_attention, check_pos
 from repro_torch.models.layers import ParamSpec, apply_rope, einsum, rms_norm
 
@@ -99,8 +100,8 @@ def mla_decode_step(
     pos = check_pos(pos, cache["c_kv"].shape[1])
     at = torch.tensor([pos], device=x.device)
     q_nope, q_rope, c_kv_new, k_rope_new = _project(p, x, m, at)
-    cache["c_kv"][:, pos] = c_kv_new[:, 0]
-    cache["k_rope"][:, pos] = k_rope_new[:, 0]
+    write_at(cache["c_kv"], {1: pos}, c_kv_new[:, 0])
+    write_at(cache["k_rope"], {1: pos}, k_rope_new[:, 0])
     # absorb W_uk into the query:  q̃ = q_nope · W_uk  ∈ latent space
     q_lat = einsum("bthk,rhk->bthr", q_nope, p["k_up"])          # [B,1,H,r]
     scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5

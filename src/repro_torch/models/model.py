@@ -25,7 +25,11 @@ With ``cfg.remat == "block"`` and gradients enabled, each block runs under
 ``torch.utils.checkpoint`` (non-reentrant), as the reference's
 ``jax.checkpoint`` of the scan body; the hybrid super-block checkpoints
 each sublayer instead.  ``abstract(cfg)`` is the parameter tree as ``meta``
-tensors, a restore template that allocates nothing.
+tensors, a restore template that allocates nothing; ``axes(cfg)`` its
+logical axes.  DTensor parameters (``distributed.sharding``) run the same
+code under DTensor's dispatch, with ``act_spec`` the reference's sharding
+constraint on the activations; the token lookup, the products and the cache
+writes take the port's own DTensor rules (``distributed.dtensor``).
 """
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.dtensor import constrain, embedding, is_dtensor, write_at
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2 as m2
 from repro_torch.models import mla as mla_mod
@@ -45,6 +50,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     ParamSpec,
     abstract_params,
+    axes_tree,
     cross_entropy,
     einsum,
     init_params,
@@ -154,6 +160,11 @@ def abstract(cfg: ModelConfig):
     return abstract_params(specs(cfg), dtype=torch_dtype(cfg.param_dtype))
 
 
+def axes(cfg: ModelConfig):
+    """The logical-axis tree of the parameters (``distributed.sharding``)."""
+    return axes_tree(specs(cfg))
+
+
 class ParamTree(nn.Module):
     """A nested dict of tensors as modules and parameters, one level a module:
     ``state_dict`` keys are the reference's tree paths (``blocks.attn.wq``).
@@ -205,6 +216,12 @@ def init(cfg: ModelConfig, seed: int = 0, device: str | torch.device | None = No
 # ---------------------------------------------------------------------------
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
+
+
+def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The token embeddings: ``table[ids]``; on a DTensor table, the
+    vocab-parallel lookup of ``distributed.dtensor.embedding``."""
+    return embedding(table, ids) if is_dtensor(table) else table[ids]
 
 
 def _layer(blocks, i: int):
@@ -297,32 +314,37 @@ def _hybrid_superblock(cfg: ModelConfig, p, x, chunk):
     return x
 
 
-def _run_stack(blocks, x, body):
-    """``body`` over the layers of ``blocks`` (the caller applies remat)."""
+def _run_stack(blocks, x, body, act_spec=None):
+    """``body`` over the layers of ``blocks`` (the caller applies remat),
+    each block's output constrained to ``act_spec``."""
     for p in _unbind(blocks):
-        x = body(p, x)
+        x = constrain(body(p, x), act_spec)
     return x
 
 
-def _encoder(cfg: ModelConfig, params, frames, chunk=None):
+def _encoder(cfg: ModelConfig, params, frames, chunk=None, act_spec=None):
     def body(p, h):
         a = rms_norm(h, p["ln1"], cfg.norm_eps)
         h = h + attn.bidir_attention(p["attn"], a, cfg.rope_theta, chunk=chunk)
         a = rms_norm(h, p["ln2"], cfg.norm_eps)
         return h + mlp_forward(a, p["mlp"])
 
-    x = _run_stack(params["enc_blocks"], frames, _remat(cfg, body))
+    x = _run_stack(params["enc_blocks"], frames, _remat(cfg, body), act_spec)
     return rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def hidden_states(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-                  chunk: Optional[int] = None) -> torch.Tensor:
-    """Embed inputs and run the stack; returns final hidden [B, T, d]."""
-    x = params["embed"][batch["tokens"]]
+                  chunk: Optional[int] = None, act_spec=None) -> torch.Tensor:
+    """Embed inputs and run the stack; returns final hidden [B, T, d].
+    ``act_spec`` (a ``PartitionSpec`` of [B, T, d]) constrains the
+    embedding's output and every block's, where the activations are
+    DTensors, as the reference's ``with_sharding_constraint``."""
+    x = _lookup(params["embed"], batch["tokens"])
     if cfg.family == "vlm":
         x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+    x = constrain(x, act_spec)
     if cfg.family == "encdec":
-        enc = _encoder(cfg, params, batch["frames"].to(x.dtype), chunk)
+        enc = _encoder(cfg, params, batch["frames"].to(x.dtype), chunk, act_spec)
 
         def body(p, h):
             a = rms_norm(h, p["ln1"], cfg.norm_eps)
@@ -332,15 +354,17 @@ def hidden_states(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
             a = rms_norm(h, p["ln2"], cfg.norm_eps)
             return h + mlp_forward(a, p["mlp"])
 
-        x = _run_stack(params["blocks"], x, _remat(cfg, body))
+        x = _run_stack(params["blocks"], x, _remat(cfg, body), act_spec)
     elif cfg.family == "ssm":
-        x = _run_stack(params["blocks"], x, _remat(cfg, lambda p, h: _ssm_block(cfg, p, h)))
+        x = _run_stack(params["blocks"], x, _remat(cfg, lambda p, h: _ssm_block(cfg, p, h)),
+                       act_spec)
     elif cfg.family == "hybrid":
         # each sublayer is checkpointed inside the super-block
-        x = _run_stack(params["blocks"], x, lambda p, h: _hybrid_superblock(cfg, p, h, chunk))
+        x = _run_stack(params["blocks"], x, lambda p, h: _hybrid_superblock(cfg, p, h, chunk),
+                       act_spec)
     else:
         x = _run_stack(params["blocks"], x,
-                       _remat(cfg, lambda p, h: _decoder_block(cfg, p, h, chunk)))
+                       _remat(cfg, lambda p, h: _decoder_block(cfg, p, h, chunk)), act_spec)
     return rms_norm(x, params["final_norm"], cfg.norm_eps)
 
 
@@ -351,8 +375,8 @@ def logits_of(cfg: ModelConfig, params, hidden: torch.Tensor) -> torch.Tensor:
 
 
 def forward(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor],
-            chunk=None) -> torch.Tensor:
-    return logits_of(cfg, params, hidden_states(cfg, params, batch, chunk))
+            chunk=None, act_spec=None) -> torch.Tensor:
+    return logits_of(cfg, params, hidden_states(cfg, params, batch, chunk, act_spec))
 
 
 def mask_vocab_pad(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
@@ -364,9 +388,9 @@ def mask_vocab_pad(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
                                                device=logits.device))
 
 
-def loss_fn(cfg: ModelConfig, params, batch, chunk=None) -> torch.Tensor:
+def loss_fn(cfg: ModelConfig, params, batch, chunk=None, act_spec=None) -> torch.Tensor:
     """Next-token NLL.  VLM: loss on text positions only."""
-    logits = mask_vocab_pad(cfg, forward(cfg, params, batch, chunk))
+    logits = mask_vocab_pad(cfg, forward(cfg, params, batch, chunk, act_spec))
     tokens = batch["tokens"]
     if cfg.family == "vlm":
         logits = logits[:, batch["vision_embeds"].shape[1]:]
@@ -386,10 +410,14 @@ def _stack_cache(one: Dict[str, torch.Tensor], *lead: int) -> Dict[str, torch.Te
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
-               device: str | torch.device = "cpu"):
-    """Zeroed decode state; ``dtype`` defaults to ``cfg.compute_dtype``, as
-    in the reference (the serving launcher passes the parameters' dtype)."""
+               device: str | torch.device | None = None):
+    """Zeroed decode state on ``device`` (CUDA unless the caller names
+    another; ``"meta"`` allocates nothing); ``dtype`` defaults to
+    ``cfg.compute_dtype``, as in the reference (the serving launcher passes
+    the parameters' dtype)."""
     dtype = torch_dtype(dtype or cfg.compute_dtype)
+    if device is None or torch.device(device).type != "meta":
+        device = device_mod.resolve(device)
     if cfg.family in ("dense", "moe", "vlm", "audio"):
         if cfg.mla is not None:
             one = mla_mod.mla_init_cache(batch, max_len, cfg.mla, dtype, device)
@@ -423,8 +451,8 @@ def encode(cfg: ModelConfig, params, frames: torch.Tensor, cache):
     enc = _encoder(cfg, params, frames)
     ks = einsum("btd,ldhk->lbthk", enc, params["blocks"]["xattn"]["wk"])
     vs = einsum("btd,ldhk->lbthk", enc, params["blocks"]["xattn"]["wv"])
-    cache["cross_k"].copy_(ks)
-    cache["cross_v"].copy_(vs)
+    write_at(cache["cross_k"], {}, ks)
+    write_at(cache["cross_v"], {}, vs)
     return cache
 
 
@@ -439,7 +467,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
     """One token a sequence: ``tokens`` [B, 1] at position ``pos`` → masked
     logits [B, 1, V_padded] and the cache, updated in place (no gradients:
     the parameters' own do not flow through a cache written in place)."""
-    x = params["embed"][tokens]
+    x = _lookup(params["embed"], tokens)
     blocks = params["blocks"]
     L = _n_stacked(blocks)
 
@@ -478,6 +506,12 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
                     sub_c = {k: v[b, i - 1] for k, v in cache["mamba"].items()}
                     a = rms_norm(x, p["mamba_ln"][i - 1], cfg.norm_eps)
                     y, _ = m2.mamba2_decode_step(_layer(p["mamba"], i - 1), sub_c, a, cfg.ssm)
+                    # a DTensor sharded on the two stacked dims is read as a
+                    # copy, so the new state is written back (on a plain
+                    # tensor the read is a view, and copying it onto itself
+                    # does nothing)
+                    for k, v in cache["mamba"].items():
+                        write_at(v, {0: b, 1: i - 1}, sub_c[k])
                 x = x + y
                 x, di, oi = _hybrid_ffn(
                     x, i, di, oi, lambda k, j: (_layer(p[k], j), p[k + "_ln"][j]),

@@ -14,6 +14,10 @@ own ``core/schedule.lpt_schedule``.
 
 Routing ties: ``torch.topk`` and ``jax.lax.top_k`` may order equal router
 probabilities differently; with random f32 weights no two are equal.
+
+On DTensors the routing, the slots, the scatter and the combine run on
+replicated tokens (``distributed.dtensor.replicated_call``): the slots are
+running counts over the whole token set.  The expert products run sharded.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.schedule import lpt_schedule
+from repro_torch.distributed.dtensor import replicated_call
 from repro_torch.models.layers import ParamSpec, einsum, mlp_specs, swiglu
 
 
@@ -48,6 +53,52 @@ def capacity(m: MoEConfig, N: int) -> int:
     if N * K <= 4096 and m.capacity_factor >= 1.0:
         return N * K
     return int(math.ceil(m.capacity_factor * N * K / E))
+
+
+def _route(probs: torch.Tensor, K: int, expert_perm: Optional[torch.Tensor]):
+    """Top-``K`` experts of each token and their renormalised weights."""
+    top_w, top_e = torch.topk(probs, K, dim=-1)               # [N, K]
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    if expert_perm is not None:
+        top_e = expert_perm.to(top_e.device)[top_e]
+    return top_w, top_e
+
+
+def _slots(top_e: torch.Tensor, E: int, C: int, K: int):
+    """Each (token, choice) pair's row of the ``[E·C + 1, d]`` buffer (row
+    E·C: dropped), whether it is kept, its token, and the one-hot of its
+    expert.  The k-th choice of token n takes, within expert e, the running
+    count of earlier pairs routed to e."""
+    flat_e = top_e.reshape(-1)                                 # [N*K]
+    onehot = F.one_hot(flat_e, E).to(torch.int32)              # [N*K, E]
+    slots = ((torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot) * onehot).sum(-1)
+    keep = slots < C
+    buf_pos = torch.where(keep, flat_e * C + slots, E * C)     # E*C ⇒ dropped
+    tok_idx = torch.arange(top_e.shape[0], device=top_e.device).repeat_interleave(K)
+    return buf_pos, keep, tok_idx, onehot
+
+
+def _dispatch(xt: torch.Tensor, buf_pos: torch.Tensor, tok_idx: torch.Tensor, E: int,
+              C: int) -> torch.Tensor:
+    """The tokens scattered into their experts' slots: ``[E, C, d]``."""
+    buf = torch.zeros((E * C + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
+    buf[buf_pos] = xt[tok_idx]                                 # row E*C: the dropped
+    return buf[: E * C].reshape(E, C, xt.shape[1])
+
+
+def _combine(y: torch.Tensor, buf_pos: torch.Tensor, keep: torch.Tensor,
+             top_w: torch.Tensor, tok_idx: torch.Tensor, N: int,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The experts' rows ``y [E·C, d]`` gathered back to their tokens,
+    weighted and summed in ``dtype`` (the tokens'): ``[N, d]``."""
+    E_C = y.shape[0]
+    gathered = y[torch.clamp(buf_pos, max=E_C - 1)]
+    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=y.dtype,
+                                                                device=y.device))
+    weighted = gathered * top_w.reshape(-1)[:, None].to(dtype)
+    out = torch.zeros((N, y.shape[1]), dtype=dtype, device=y.device)
+    out.index_add_(0, tok_idx, weighted.to(dtype))
+    return out
 
 
 def moe_forward(
@@ -82,36 +133,19 @@ def moe_forward(
 
     logits = einsum("nd,de->ne", xt, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = torch.topk(probs, K, dim=-1)               # [N, K]
-    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
-    if expert_perm is not None:
-        top_e = expert_perm.to(top_e.device)[top_e]
-
-    # capacity slots: for the k-th choice of token n, its slot within expert e
-    # is the running count of earlier (token, choice) pairs routed to e
-    flat_e = top_e.reshape(-1)                                 # [N*K]
-    onehot = F.one_hot(flat_e, E).to(torch.int32)              # [N*K, E]
-    slots = ((torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot) * onehot).sum(-1)
-    keep = slots < C
+    # the routing, the slots and the scatter and combine run on the whole
+    # token set, as on one device (the slots are global running counts)
+    top_w, top_e = replicated_call("moe.topk", _route, probs, K, expert_perm)
+    buf_pos, keep, tok_idx, onehot = _slots(top_e, E, C, K)
     dropped = (~keep).sum(dtype=torch.int32)
-
-    buf_pos = torch.where(keep, flat_e * C + slots, E * C)     # E*C ⇒ dropped
-    tok_idx = torch.arange(N, device=x.device).repeat_interleave(K)
-    buf = torch.zeros((E * C + 1, d), dtype=x.dtype, device=x.device)
-    buf[buf_pos] = xt[tok_idx]                                 # row E*C: the dropped
-    eb = buf[: E * C].reshape(E, C, d)
+    eb = replicated_call("moe.dispatch", _dispatch, xt, buf_pos, tok_idx, E, C)
 
     g = einsum("ecd,edf->ecf", eb, p["w_gate"])
     u = einsum("ecd,edf->ecf", eb, p["w_up"])
     h = F.silu(g) * u
     y = einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * C, d)
-
-    gathered = y[torch.clamp(buf_pos, max=E * C - 1)]
-    gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=y.dtype,
-                                                                device=y.device))
-    weighted = gathered * top_w.reshape(-1)[:, None].to(x.dtype)
-    out = torch.zeros((N, d), dtype=x.dtype, device=x.device)
-    out.index_add_(0, tok_idx, weighted.to(x.dtype))
+    out = replicated_call("moe.combine", _combine, y, buf_pos, keep, top_w, tok_idx, N,
+                          x.dtype)
 
     if m.n_shared:
         sp = p["shared"]

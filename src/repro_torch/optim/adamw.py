@@ -14,6 +14,13 @@ returns them, where the reference returns new arrays.  Each leaf is updated
 in slices of its leading dim of at most ``CHUNK`` elements, so the f32
 temporaries of a stacked leaf (llama3.2-3b's ``[28, 3072, 8192]`` MLP
 weights: 2.8 GB each in f32) stay the size of a slice.
+
+DTensor leaves (a sharded step, ``distributed.sharding``): the moments are
+made in their parameter's placements, the update runs on each rank's local
+shards (every gradient must be in its parameter's placements, as the
+sharded step returns them), and :func:`global_norm` sums each rank's shard
+and reduces over the mesh dims that shard the leaf only, so an element
+replicated over ``model`` counts once.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed.dtensor import is_dtensor
 from repro_torch.models.layers import leaves, map_tree, torch_dtype
 
 #: the most elements of one leaf updated at a time
@@ -54,6 +62,8 @@ def init(params, cfg: AdamWConfig) -> AdamWState:
     dt = torch_dtype(cfg.state_dtype)
 
     def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=dt, requires_grad=False)
         return torch.zeros(p.shape, dtype=dt, device=p.device)
 
     device = next(leaves(params))[1].device
@@ -80,13 +90,38 @@ def _chunks(a: torch.Tensor):
     return a.split(rows)
 
 
+def _square_sum(a: torch.Tensor) -> torch.Tensor:
+    return sum(c.float().square().sum() for c in _chunks(a))
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in f32."""
+    """sqrt of the sum of every leaf's squares, in f32 (a plain tensor, the
+    same on every rank, where the leaves are DTensors)."""
     total = None
+    sharded: Dict[Any, torch.Tensor] = {}
     for _, leaf in leaves(tree):
-        s = sum(c.float().square().sum() for c in _chunks(leaf))
+        if is_dtensor(leaf):
+            # the local shard's sum, pending a sum over the mesh dims that
+            # shard the leaf (the others hold the same shard)
+            key = (leaf.device_mesh, tuple(pl.is_shard() for pl in leaf.placements))
+            s = _square_sum(leaf.to_local())
+            sharded[key] = s if key not in sharded else sharded[key] + s
+            continue
+        s = _square_sum(leaf)
+        total = s if total is None else total + s
+    for (mesh, shards), s in sharded.items():
+        s = _reduce_over(s, mesh, shards)
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _reduce_over(s: torch.Tensor, mesh, shards) -> torch.Tensor:
+    """The local value ``s`` summed over the mesh dims flagged in
+    ``shards``, as a plain tensor."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    pl = [Partial() if sh else Replicate() for sh in shards]
+    return DTensor.from_local(s, mesh, pl, run_check=False).full_tensor()
 
 
 @torch.no_grad()
@@ -117,7 +152,13 @@ def update(grads, state: AdamWState, params,
     grads_at = dict(leaves(grads))
     m_at, v_at = dict(leaves(state.m)), dict(leaves(state.v))
     for path, p in leaves(params):
-        for chunk in zip(_chunks(p), _chunks(grads_at[path]), _chunks(m_at[path]),
-                         _chunks(v_at[path])):
+        parts = (p, grads_at[path], m_at[path], v_at[path])
+        if is_dtensor(p):
+            for t in parts[1:]:
+                if not is_dtensor(t) or tuple(t.placements) != tuple(p.placements):
+                    raise ValueError(f"{path}: the gradient and moments must be DTensors in "
+                                     f"the parameter's placements {p.placements}")
+            parts = tuple(t.to_local() for t in parts)
+        for chunk in zip(*(_chunks(t) for t in parts)):
             upd(*chunk)
     return params, AdamWState(step=step, m=state.m, v=state.v), {"grad_norm": gnorm, "lr": lr}

@@ -131,11 +131,11 @@ def _model_state(dtype: str):
     step = jax.jit(ref_steps.make_train_step(ref_cfg, tp.ref_opt(opt_cfg)))
     params, opt, _ = step(params, ref_adamw.init(params, tp.ref_opt(opt_cfg)), b)
     ref_state = {"params": params, "opt": opt}
-    port_state = {"params": convert.tree_from_jax(parity.np_tree(params)),
+    port_state = {"params": convert.tree_from_jax(parity.np_tree(params), "cpu"),
                   "opt": adamw.AdamWState(
                       step=torch.tensor(int(opt.step), dtype=torch.int32),
-                      m=convert.tree_from_jax(parity.np_tree(opt.m)),
-                      v=convert.tree_from_jax(parity.np_tree(opt.v)))}
+                      m=convert.tree_from_jax(parity.np_tree(opt.m), "cpu"),
+                      v=convert.tree_from_jax(parity.np_tree(opt.v), "cpu"))}
     return ref_state, port_state
 
 

@@ -58,7 +58,7 @@ def T(a):
 def weights(specs):
     """The reference's f32 init of ``specs``: (jax tree, port tree)."""
     p = rlayers.init_params(specs, KEY, dtype=jnp.float32)
-    return p, tree_from_jax(jax.tree.map(np.asarray, p))
+    return p, tree_from_jax(jax.tree.map(np.asarray, p), "cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +153,7 @@ def test_gqa_decode_step_and_cache():
     x = rand(2, 1, 32, seed=12)
     want, wc = jax.jit(lambda p, c, x, pos: rattn.gqa_decode_step(p, c, x, pos, 10_000.0))(
         p, cache0, x, jnp.asarray(5, jnp.int32))
-    cache = tree_from_jax(cache0)
+    cache = tree_from_jax(cache0, "cpu")
     got, gc = attn.gqa_decode_step(pt, cache, T(x), 5, 10_000.0)
     close(got, want)
     close(gc["k"], wc["k"])
@@ -181,7 +181,7 @@ def test_mla_forward_and_absorbed_decode(chunk):
     x1 = rand(2, 1, 32, seed=16)
     want, wc = jax.jit(lambda p, c, x, pos: rmla.mla_decode_step(p, c, x, pos, rm))(
         p, cache0, x1, jnp.asarray(6, jnp.int32))
-    got, gc = mla.mla_decode_step(pt, tree_from_jax(cache0), T(x1), 6, m)
+    got, gc = mla.mla_decode_step(pt, tree_from_jax(cache0, "cpu"), T(x1), 6, m)
     close(got, want)
     close(gc["c_kv"], wc["c_kv"])
     close(gc["k_rope"], wc["k_rope"])
@@ -263,7 +263,7 @@ def test_mamba2_forward_and_decode_step():
     # non-trivial A_log, dt_bias, conv biases (the init leaves them at 0)
     for k, seed in (("A_log", 26), ("dt_bias", 27), ("conv_x_b", 28), ("conv_bc_b", 29)):
         p = {**p, k: jnp.asarray(rand(*p[k].shape, seed=seed, scale=0.3))}
-    pt = tree_from_jax(jax.tree.map(np.asarray, p))
+    pt = tree_from_jax(jax.tree.map(np.asarray, p), "cpu")
     x = rand(2, 16, 16, seed=30)
     close(m2.mamba2_forward(pt, T(x), s),
           jax.jit(lambda p, x: rm2.mamba2_forward(p, x, rs))(p, x))
@@ -271,7 +271,7 @@ def test_mamba2_forward_and_decode_step():
               "ssm": rand(2, 4, 8, 8, seed=33)}
     x1 = rand(2, 1, 16, seed=34)
     want, wc = jax.jit(lambda p, c, x: rm2.mamba2_decode_step(p, c, x, rs))(p, cache0, x1)
-    got, gc = m2.mamba2_decode_step(pt, tree_from_jax(cache0), T(x1), s)
+    got, gc = m2.mamba2_decode_step(pt, tree_from_jax(cache0, "cpu"), T(x1), s)
     close(got, want)
     for k in cache0:
         close(gc[k], wc[k])

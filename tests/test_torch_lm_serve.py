@@ -132,7 +132,7 @@ def test_serve_caches_in_the_parameters_dtype_and_raises_past_its_end():
                               param_dtype="bfloat16")
     params = M.init(cfg, 0, "cpu").params()
     assert params["embed"].dtype == torch.bfloat16
-    cache = M.init_cache(cfg, 1, 4, params["embed"].dtype)
+    cache = M.init_cache(cfg, 1, 4, params["embed"].dtype, "cpu")
     assert cache["k"].dtype == torch.bfloat16
     tok = torch.zeros((1, 1), dtype=torch.long)
     M.decode_step(cfg, params, cache, tok, 3)

@@ -78,7 +78,7 @@ def test_adamw_update_equals_reference(state_dtype):
     params, model, g = _ref_grads("llama3.2-3b")
     cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=2, total_steps=10, state_dtype=state_dtype)
     rcfg = tp.ref_opt(cfg)
-    grads = convert.tree_from_jax(parity.np_tree(g))
+    grads = convert.tree_from_jax(parity.np_tree(g), "cpu")
     p = model.params()
     st = adamw.init(p, cfg)
     want_p, want_st = params, ref_adamw.init(params, rcfg)
@@ -99,7 +99,7 @@ def test_adamw_update_equals_reference(state_dtype):
 
 def test_global_norm_equals_reference():
     _, _, g = _ref_grads("granite-20b")
-    got = float(adamw.global_norm(convert.tree_from_jax(parity.np_tree(g))))
+    got = float(adamw.global_norm(convert.tree_from_jax(parity.np_tree(g), "cpu")))
     want = float(ref_adamw.global_norm(g))
     assert abs(got - want) <= ADAMW_REL * want
 

@@ -35,7 +35,7 @@ def models(arch: str):
     cfg = registry.get_config(arch, smoke=True)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(ref_cfg)
     params = RM.init(ref_cfg, KEY)
-    return ref_cfg, params, cfg, convert.from_jax_params(cfg, np_tree(params))
+    return ref_cfg, params, cfg, convert.from_jax_params(cfg, np_tree(params), "cpu")
 
 
 def inputs(cfg, seed: int = 0):
@@ -85,7 +85,7 @@ def check_decode(arch: str):
     batch = inputs(cfg, seed=1)
     tokens = batch["tokens"]
     ref_cache = RM.init_cache(ref_cfg, B, 16, jnp.float32)
-    cache = M.init_cache(cfg, B, 16, torch.float32)
+    cache = M.init_cache(cfg, B, 16, torch.float32, "cpu")
     p = model.params()
     if cfg.family == "encdec":
         ref_cache = jax.jit(lambda pp, f, c: RM.encode(ref_cfg, pp, f, c))(

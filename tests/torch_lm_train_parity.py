@@ -72,7 +72,7 @@ def models(arch: str, **changes):
     ref_cfg = dataclasses.replace(ref_cfg, **changes)
     cfg = dataclasses.replace(cfg, **changes)
     params = RM.init(ref_cfg, parity.KEY)
-    return ref_cfg, params, cfg, convert.from_jax_params(cfg, parity.np_tree(params))
+    return ref_cfg, params, cfg, convert.from_jax_params(cfg, parity.np_tree(params), "cpu")
 
 
 def ref_value_and_grad(ref_cfg, params, b):
