@@ -178,8 +178,24 @@ prints one JSON object on a line of its own:
            their max; each gradient in its parameter's placements); each
            call's wall, the peak memory, the ops run on replicated copies,
            the backend; then each full config's bytes a rank (parameters and
-           AdamW state) on the 16x16 production mesh, computed from the
-           shapes;
+           AdamW state) on the 16x16 production mesh: the dry run's argument
+           bytes of its ``train_4k`` cell, from the shapes;
+  dryrun   the dry run (``repro_torch.launch.dryrun``) in three child
+           processes at once, each with its own fake process group (none
+           meets an NCCL group): ``run_cell`` for llama3.2-3b ``decode_32k``
+           on the 16x16 fake world (argument bytes 1,986,743,716, the JAX
+           package's) and olmoe-1b-7b ``decode_32k`` on 2x16x16; the train
+           step of the ``train_4k`` cell's policy (accum 8, batch 256 x
+           4096, 16x16) on llama3.2-3b's smoke config; and ``lm_train``'s own
+           step (llama3.2-3b at full config, bf16, f32 AdamW, block remat,
+           batch 8 x 128, accum 1) on a 1x1 fake world, whose argument bytes
+           must equal the bytes the caching allocator was asked for with the
+           same parameters, state and batch placed on the card (one block a
+           tensor), and ``torch.cuda.memory_allocated()`` within the
+           allocator's rounding (512 B a block, and the unsplit rest of a
+           segment, at most 1 MiB, a block over 1 MiB); its estimated peak
+           stands beside ``lm_train``'s ``max_memory_allocated``; each record
+           must have the reference's keys;
   profile  the main path, both cluster paths, the store mine and the serve
            replay once more under ``torch.profiler``: the card's busy time
            and share of the wall, and the kernels' share of that.
@@ -1982,7 +1998,8 @@ def phase_lm_train(torch, dev, smi, tmp):
     through the launcher's loop, (b) remat read, (c) every smoke config's
     step card against CPU (llama also at accum 2), (d) memorize and resume
     through the port's checkpoint manager.  Plain PyTorch throughout: the
-    training half reaches no ``pl.pallas_call`` in the reference."""
+    training half reaches no ``pl.pallas_call`` in the reference.  Returns
+    (a)'s row."""
     from repro_torch.configs.registry import all_archs
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 compares as f32
@@ -2000,6 +2017,7 @@ def phase_lm_train(torch, dev, smi, tmp):
                         "moments": "2 x grad_share"},
           "full": full, "remat": remat, "card_vs_cpu": parity, "memorize": memo,
           "wall_s": time.perf_counter() - t0})
+    return full
 
 
 # lm_shard: the sharding group on a one-rank NCCL mesh (``--lm-shard-child``)
@@ -2143,32 +2161,21 @@ def lm_shard_child(out_path: str) -> None:
 
 
 def planned_bytes_per_rank():
-    """Each full config's parameters plus AdamW state (m, v in the layout's
-    state dtype, the step) on one rank of the 16x16 production mesh under
-    the dry run's layout: computed from the shapes (``meta`` tensors), no
-    rank holds them."""
-    from repro_torch.configs.registry import all_archs, get_config
-    from repro_torch.distributed import sharding as shd
-    from repro_torch.launch import mesh as mesh_mod
-    from repro_torch.models import model as M
-    from repro_torch.models.layers import map_tree, torch_dtype
+    """Each full config's parameters plus AdamW state on one rank of the
+    16x16 production mesh: the parameter and optimizer-state part of the
+    dry run's argument bytes of its ``train_4k`` ``single`` cell
+    (``dryrun.argument_bytes``), computed from the shapes; no rank holds
+    them."""
+    from repro_torch.configs.registry import all_archs
+    from repro_torch.launch import dryrun
 
-    import torch
-
-    m = mesh_mod.production_shape()
     out = {}
     for arch in all_archs():
-        cfg = get_config(arch)
-        layout = shd.step_layout(M.n_params(cfg), m)
-        tmpl = M.abstract(cfg)
-        sh = shd.tree_shardings(tmpl, M.axes(cfg), m, layout.rules)
-        params = shd.bytes_per_rank(tmpl, sh)
-        state_dt = torch_dtype(layout.state_dtype)
-        moments = shd.bytes_per_rank(map_tree(
-            lambda t: torch.empty(t.shape, dtype=state_dt, device="meta"), tmpl), sh)
-        out[arch] = {"n_params": M.n_params(cfg), "state_dtype": layout.state_dtype,
-                     "params_bytes": params, "adamw_bytes": 2 * moments + 4,
-                     "total_bytes": params + 2 * moments + 4}
+        cell = dryrun.plan(arch, "train_4k", "single")
+        arg = dryrun.argument_bytes(cell)
+        out[arch] = {"n_params": cell.n_params, "state_dtype": cell.layout.state_dtype,
+                     "params_bytes": arg["params"], "adamw_bytes": arg["opt"],
+                     "total_bytes": arg["params"] + arg["opt"]}
     return out
 
 
@@ -2202,6 +2209,167 @@ def phase_lm_shard(torch, dev, smi, tmp):
           "planned_bytes_per_rank_16x16": {
               "note": "computed from the shapes under the dry run's layout, not measured",
               **planned_bytes_per_rank()}})
+
+
+# dryrun: the dry run on fake worlds, in child processes (``--dryrun-child``)
+DRYRUN_CELLS = (("llama3.2-3b", "decode_32k", "single"), ("olmoe-1b-7b", "decode_32k", "multi"))
+#: the reference's record keys (``src/repro/launch/dryrun.py``), nested ones
+#: under their parent's
+DRYRUN_KEYS = {"arch", "shape", "mesh", "world", "n_params", "kind", "seq_len", "global_batch",
+               "memory", "cost", "collectives", "timing", "overrides", "loops",
+               "memory.argument_bytes", "memory.temp_bytes", "memory.output_bytes",
+               "memory.alias_bytes", "memory.per_device_total_bytes", "memory.fits_16GB",
+               "cost.flops_per_device", "cost.bytes_accessed_per_device", "timing.lower_s",
+               "timing.compile_s", "loops.accum", "loops.layer_scan_trips", "loops.attn_chunk",
+               "collectives.total_wire_bytes_per_device", "collectives.count"}
+#: llama3.2-3b decode_32k on 16x16: the JAX package's memory_analysis
+LLAMA_DECODE_ARGUMENT_BYTES = 1_986_743_716
+#: the caching allocator rounds each block up to 512 B, and a block of the
+#: large pool (over 1 MiB) keeps the rest of its segment when that rest is
+#: 1 MiB or less (it splits only a larger one)
+ALLOC_ROUND, ALLOC_SMALL = 512, 1 << 20
+
+
+def record_keys(rec) -> set:
+    out = set()
+    for k, v in rec.items():
+        out.add(k)
+        if isinstance(v, dict) and k != "overrides":
+            out.update(f"{k}.{kk}" for kk in v
+                       if k != "collectives" or kk in ("total_wire_bytes_per_device", "count"))
+    return out
+
+
+def dryrun_row(run, wall):
+    return {"record": run.record, "arguments": run.arguments,
+            "replicated_ops": run.replications, "wall_s": wall}
+
+
+def dryrun_child(job: str, out_path: str) -> None:
+    """A child of ``phase_dryrun``: ``cells`` (the two ``run_cell``s),
+    ``smoke_train`` (the ``train_4k`` policy on llama3.2-3b's smoke config)
+    or ``card`` (``lm_train``'s step on a 1x1 fake world, then the same
+    arguments placed on the card).  Writes its rows to ``out_path``."""
+    sys.path.insert(0, str(SRC))
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import leaves
+    from repro_torch.optim import adamw
+
+    rows = {}
+    if job == "cells":
+        for cell in DRYRUN_CELLS:
+            t0 = time.perf_counter()
+            run = dryrun.dry_run(dryrun.plan(*cell))
+            rows["/".join(cell)] = dryrun_row(run, time.perf_counter() - t0)
+    elif job == "smoke_train":
+        cell = dryrun.plan(LM_TRAIN_ARCH, "train_4k", "single")
+        t0 = time.perf_counter()
+        run = dryrun.dry_run(dryrun.on_model(cell, get_config(LM_TRAIN_ARCH, smoke=True)))
+        rows["smoke_train_4k_single"] = dryrun_row(run, time.perf_counter() - t0)
+    else:
+        m = mesh_mod.debug_shape(1, 1)
+        cell = dryrun.plan(LM_TRAIN_ARCH, "train_4k", "single")
+        cell = dataclasses.replace(cell, mesh=m, layout=shd.step_layout(cell.n_params, m),
+                                   shape=ShapeConfig("lm_train", LM_TRAIN_SEQ, LM_TRAIN_BATCH,
+                                                     "train"), accum=1, attn_chunk=None)
+        t0 = time.perf_counter()
+        run = dryrun.dry_run(cell)
+        row = dryrun_row(run, time.perf_counter() - t0)
+        # the same arguments on the card: parameters, AdamW state, the batch
+        dev = torch.device("cuda", 0)
+        params = M.init(cell.cfg, 0, dev).params()
+        opt = adamw.init(params, adamw.AdamWConfig(state_dtype=cell.layout.state_dtype))
+        tokens = torch.zeros((LM_TRAIN_BATCH, LM_TRAIN_SEQ), dtype=torch.int32, device=dev)
+        torch.cuda.synchronize()
+        placed = [t for _, t in leaves({"p": params, "m": opt.m, "v": opt.v})]
+        placed += [opt.step, tokens]
+        blocks = [b for seg in torch.cuda.memory_snapshot() for b in seg["blocks"]
+                  if b["state"] == "active_allocated"]
+        sizes = [t.numel() * t.element_size() for t in placed]
+        row["card"] = {"memory_allocated": torch.cuda.memory_allocated(),
+                       "tensors": len(placed), "bytes": sum(sizes),
+                       "blocks": len(blocks),
+                       "requested_bytes": sum(b["requested_size"] for b in blocks),
+                       "rounding_bound": sum(ALLOC_ROUND + (ALLOC_SMALL if n > ALLOC_SMALL
+                                                            else 0) for n in sizes)}
+        rows["lm_train_1x1"] = row
+    Path(out_path).write_text(json.dumps(rows))
+
+
+def phase_dryrun(torch, dev, smi, tmp, lm_train_peak):
+    """The dry run in three child processes at once (``dryrun_child``); each
+    record with the reference's keys, llama3.2-3b ``decode_32k``'s argument
+    bytes the JAX package's, the train step's microbatch split gathered once,
+    the 1x1 cell's argument bytes equal to what the card's allocator was asked
+    for to hold the same arguments (``memory_allocated`` within its
+    rounding), and its estimated peak beside
+    ``lm_train``'s ``max_memory_allocated`` (``lm_train_peak``)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    env.pop("REPRO_ZERO1", None)
+    t0 = time.perf_counter()
+    procs = {}
+    for job in ("cells", "smoke_train", "card"):
+        err = open(Path(tmp) / f"dryrun_{job}.err", "w")
+        procs[job] = (subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                        "--dryrun-child", job,
+                                        str(Path(tmp) / f"dryrun_{job}.json")],
+                                       cwd=ROOT, env=env, stderr=err), err)
+    rows, bad = {}, []
+    for job, (proc, err) in procs.items():
+        try:
+            code = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            code = proc.wait()
+        err.close()
+        out = Path(tmp) / f"dryrun_{job}.json"
+        if code != 0 or not out.exists():
+            tail = (Path(tmp) / f"dryrun_{job}.err").read_text()[-3000:]
+            fail(f"dryrun ({job}): exit {code}; stderr: {tail}")
+        rows.update(json.loads(out.read_text()))
+    wall = time.perf_counter() - t0
+    for name, row in rows.items():
+        missing = DRYRUN_KEYS - record_keys(row["record"])
+        extra = record_keys(row["record"]) - DRYRUN_KEYS
+        if missing or extra:
+            bad.append(f"{name}: keys missing {sorted(missing)}, not the reference's "
+                       f"{sorted(extra)}")
+    llama = rows["/".join(DRYRUN_CELLS[0])]["record"]["memory"]["argument_bytes"]
+    if llama != LLAMA_DECODE_ARGUMENT_BYTES:
+        bad.append(f"llama3.2-3b decode_32k argument bytes {llama}")
+    smoke = rows["smoke_train_4k_single"]
+    if smoke["record"]["loops"]["accum"] != 8 or smoke["replicated_ops"] != \
+            {"microbatch.reshape": 1}:
+        bad.append(f"smoke train step: {smoke['record']['loops']}, {smoke['replicated_ops']}")
+    card = rows["lm_train_1x1"]
+    arg = card["record"]["memory"]["argument_bytes"]
+    alloc = card["card"]["memory_allocated"]
+    # the allocator was asked for exactly the argument bytes, one block a
+    # tensor, and holds them within its rounding
+    if card["card"]["requested_bytes"] != arg or card["card"]["bytes"] != arg \
+            or card["card"]["blocks"] != card["card"]["tensors"] \
+            or not 0 <= alloc - arg <= card["card"]["rounding_bound"]:
+        bad.append(f"1x1 argument bytes {arg} against the card's {card['card']}")
+    estimate = card["record"]["memory"]["per_device_total_bytes"]
+    emit({"phase": "dryrun", "nvidia_smi": smi, "torch": torch.__version__, "wall_s": wall,
+          "rows": rows,
+          "lm_train_1x1": {"argument_bytes": arg, "memory_allocated": alloc,
+                           "estimated_peak_bytes": estimate,
+                           "lm_train_max_memory_allocated": lm_train_peak,
+                           "estimate_over_measured": estimate / lm_train_peak}})
+    if bad:
+        fail(f"dryrun: {bad}")
 
 
 def phase_profile(torch, dev, dense, serve_run, store):
@@ -2753,6 +2921,9 @@ def main() -> None:
     if sys.argv[1:2] == ["--lm-shard-child"]:
         lm_shard_child(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child(sys.argv[2], sys.argv[3])
+        return
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -2828,8 +2999,9 @@ def main() -> None:
     cluster_obs_launches = phase_cluster_obs(torch, dev, dense, want, smi, store_dir.name)
     rank_launches = phase_ranks(dev, want, store_want, smi, store_dir.name)
     phase_lm_serve(torch, dev, smi)
-    phase_lm_train(torch, dev, smi, store_dir.name)
+    lm_train_row = phase_lm_train(torch, dev, smi, store_dir.name)
     phase_lm_shard(torch, dev, smi, store_dir.name)
+    phase_dryrun(torch, dev, smi, store_dir.name, lm_train_row["peak_mem_bytes"])
     phase_profile(torch, dev, dense, serve_run, store)
 
     # B3 and B6: one wave and no spills at every timed shape, and the empty

@@ -16,7 +16,10 @@ other:
   * **atomic**: a save writes ``step_N.tmp/`` then ``os.replace``s it, so a
     crash mid-save never corrupts the latest checkpoint; stale ``.tmp``
     directories are removed at the next save;
-  * **retention**: the newest ``keep`` checkpoints stay.
+  * **retention**: the newest ``keep`` checkpoints stay;
+  * **sharded states**: a state holding DTensors is saved by every rank of
+    its group together: each leaf gathered, the checkpoint written by rank
+    0 alone in the same format (``save``).
 
 ``restore(template, step, device, shardings)`` takes a tree of tensors
 (``meta`` tensors from ``models.model.abstract`` do: nothing is allocated
@@ -43,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_mod
+from repro_torch.distributed.dtensor import full, is_dtensor
 
 #: dtypes numpy cannot hold: stored as unsigned views of their width, and
 #: read back through a view torch takes from numpy
@@ -113,14 +117,38 @@ class CheckpointManager:
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, state: Dict[str, Any], extra: Optional[Dict] = None) -> Path:
-        """state: a tree of tensors (params/opt/...); extra: JSON-serializable."""
+        """state: a tree of tensors (params/opt/...); extra: JSON-serializable.
+
+        A state holding DTensors (a sharded step's) is a collective: every
+        rank of the group calls ``save``, each DTensor leaf is gathered on
+        every rank, rank 0 alone writes the checkpoint, and every rank
+        returns once it is in place (and raises if rank 0 failed)."""
+        flat = flatten(state)
+        if not any(is_dtensor(v) for v in flat.values()):
+            return self._write(step, flat, extra)
+        import torch.distributed as dist
+
+        flat = {k: full(v) for k, v in flat.items()}
+        final, error = self.dir / f"step_{step:010d}", None
+        if dist.get_rank() == 0:
+            try:
+                self._write(step, flat, extra)
+            except Exception as e:   # told to every rank below, then raised
+                error = f"{type(e).__name__}: {e}"
+        said = [error]
+        dist.broadcast_object_list(said, src=0)
+        if said[0] is not None:
+            raise RuntimeError(f"checkpoint step {step} not written by rank 0: {said[0]}")
+        return final
+
+    def _write(self, step: int, flat: Dict[str, Any], extra: Optional[Dict]) -> Path:
         tmp = self.dir / f"step_{step:010d}.tmp"
         final = self.dir / f"step_{step:010d}"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
         arrays, dtypes = {}, {}
-        for k, v in flatten(state).items():
+        for k, v in flat.items():
             arrays[k], dtypes[k] = _to_numpy(v)
         np.savez(tmp / "host0.npz", **arrays)
         manifest = {

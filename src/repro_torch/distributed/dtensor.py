@@ -238,19 +238,58 @@ def along(fn: Callable, x: torch.Tensor, dim: int) -> torch.Tensor:
                               shape=x.shape, stride=x.stride())
 
 
-def gather_dim(name: str, x: torch.Tensor, dim: int, over: int = 2) -> torch.Tensor:
-    """``x`` with dim ``dim`` replicated where a DTensor shards it over at
-    least ``over`` mesh dims, the redistribution counted under ``name``;
-    else ``x``.  For views DTensor has no strategy for: splitting a dim
-    sharded over two mesh dims, or (torch 2.11) flattening a sharded dim
-    into the one before it."""
-    if not is_dtensor(x) or sum(pl.is_shard(dim) for pl in x.placements) < over:
+def pinned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient is redistributed to ``x``'s placements before
+    it flows back (so a view before it meets the gradient in its forward's
+    layout); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def gather_dim(name: str, x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` replicated where a DTensor shards it, the
+    redistribution counted under ``name``; else ``x``.  For views DTensor
+    has no strategy for: splitting a sharded dim unevenly (``split_dim``),
+    or (torch 2.11) flattening a sharded dim into the one before it."""
+    if not is_dtensor(x) or not any(pl.is_shard(dim) for pl in x.placements):
         return x
     from torch.distributed.tensor import Replicate
 
     _REPLICATED[name] += 1
     return x.redistribute(x.device_mesh,
                           [Replicate() if pl.is_shard(dim) else pl for pl in x.placements])
+
+
+def reduced(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with every pending sum (``Partial``) reduced to ``Replicate``:
+    before an op that is not linear, whose input DTensor would otherwise
+    reduce-scatter onto a dim of its choosing (possibly one that does not
+    split evenly); a plain tensor as it is."""
+    if not is_dtensor(x) or not any(pl.is_partial() for pl in x.placements):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if pl.is_partial() else pl for pl in x.placements])
+
+
+def split_dim(name: str, x: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` (size N) viewed as ``(parts, N // parts)``.
+    Where a DTensor shards that dim over two mesh dims, or over one whose
+    size does not divide ``parts`` (DTensor keeps a shard through the split
+    only on the new outer dim, evenly, or on the inner one when the outer
+    is 1), the dim is gathered first, counted under ``name``: a constraint
+    after it then takes each rank's part without moving data."""
+    if is_dtensor(x) and parts > 1:
+        dims = [i for i, pl in enumerate(x.placements) if pl.is_shard(dim)]
+        if len(dims) > 1 or (dims and parts % x.device_mesh.size(dims[0])):
+            x = gather_dim(name, x, dim)
+    shape = tuple(x.shape)
+    return x.reshape(shape[:dim] + (parts, shape[dim] // parts) + shape[dim + 1:])
 
 
 def write_at(dst: torch.Tensor, index: Dict[int, int], src: torch.Tensor) -> None:

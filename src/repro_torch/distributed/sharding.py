@@ -204,24 +204,35 @@ class StepLayout:
     batch_axes: Tuple[str, ...]     # the step's ``batch_spec``
     act_spec: PartitionSpec         # [B, T, d] activations
     state_dtype: str                # AdamW moments
+    opt_rules: Rules = None         # AdamW moments (None: ``rules``)
+    accum_dtype: str = "float32"    # the microbatches' gradient sum
+
+    def __post_init__(self):
+        if self.opt_rules is None:
+            object.__setattr__(self, "opt_rules", self.rules)
 
 
-def step_layout(n_params: int, mesh) -> StepLayout:
+def step_layout(n_params: int, mesh, zero1: bool = False) -> StepLayout:
     """The reference dry run's layout for a model of ``n_params`` parameters
     (``src/repro/launch/dryrun.py:62-92, 124-130``): under 1e9 parameters
     pure data parallelism (every rule ``None``, the batch over every mesh
     axis); else ``default_rules`` with FSDP and the batch over the data
-    axes; over 50e9 the AdamW state and the accumulator in bf16."""
+    axes; over 50e9 the AdamW state and the accumulator in bf16.  With
+    ``zero1`` (the reference's ``REPRO_ZERO1``, for models of neither
+    extreme) the parameters are TP-only and the moments keep the FSDP rules."""
     multi = "pod" in axis_names(mesh)
     small, big = n_params < 1e9, n_params > 50e9
     rules = default_rules(multi_pod=multi)
+    opt_rules = rules
+    if zero1 and not small and not big:
+        rules = default_rules(multi_pod=multi, fsdp=False)
     if small:
-        rules = {k: None for k in rules}
+        rules = opt_rules = {k: None for k in rules}
     b_axes = ("pod", "data") if multi else ("data",)
     if small:
         b_axes = b_axes + ("model",)
-    return StepLayout(rules, b_axes, PS(b_axes, None, None),
-                      "bfloat16" if big else "float32")
+    dt = "bfloat16" if big else "float32"
+    return StepLayout(rules, b_axes, PS(b_axes, None, None), dt, opt_rules, dt)
 
 
 def batch_spec_for(mesh, layout: StepLayout, shape: Sequence[int]) -> PartitionSpec:

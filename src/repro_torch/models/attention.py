@@ -16,7 +16,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.dtensor import write_at
+from repro_torch.distributed.dtensor import split_dim, write_at
 from repro_torch.models.layers import ParamSpec, apply_rope, einsum
 
 NEG_INF = -1e30
@@ -32,9 +32,9 @@ def attn_specs(d: int, n_heads: int, n_kv: int, hd: int) -> Dict[str, ParamSpec]
 
 
 def _group(q: torch.Tensor, n_kv: int) -> torch.Tensor:
-    """[B,T,H,hd] -> [B,T,KV,G,hd] with H = KV*G."""
-    B, T, H, hd = q.shape
-    return q.reshape(B, T, n_kv, H // n_kv, hd)
+    """[B,T,H,hd] -> [B,T,KV,G,hd] with H = KV*G (on a DTensor whose head
+    shards do not divide KV, the heads gathered first)."""
+    return split_dim("attention.group_heads", q, 2, n_kv)
 
 
 def check_pos(pos: int, max_len: int) -> int:
@@ -94,7 +94,7 @@ def chunked_causal_attention(
     ar = torch.arange(chunk, device=q.device)
     outs = []
     for qi in range(n):
-        qg = q[:, qi * chunk:(qi + 1) * chunk].reshape(B, chunk, KV, G, hd)
+        qg = _group(q[:, qi * chunk:(qi + 1) * chunk], KV)
         q_pos = qi * chunk + ar
         m = torch.full((B, KV, G, chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, KV, G, chunk), dtype=torch.float32, device=q.device)
@@ -139,7 +139,7 @@ def gqa_forward(
 
 
 def gqa_init_cache(batch: int, max_len: int, n_kv: int, hd: int, dtype,
-                   device="cpu") -> Dict[str, torch.Tensor]:
+                   device) -> Dict[str, torch.Tensor]:
     return {
         "k": torch.zeros((batch, max_len, n_kv, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, max_len, n_kv, hd), dtype=dtype, device=device),
@@ -179,7 +179,7 @@ def chunked_bidir_attention(
     scale = hd ** -0.5
     outs = []
     for qi in range(n):
-        qg = q[:, qi * chunk:(qi + 1) * chunk].reshape(B, chunk, KV, G, hd)
+        qg = _group(q[:, qi * chunk:(qi + 1) * chunk], KV)
         m = torch.full((B, KV, G, chunk), NEG_INF, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, KV, G, chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, KV, G, chunk, hd), dtype=torch.float32, device=q.device)

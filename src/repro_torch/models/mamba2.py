@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
-from repro_torch.distributed.dtensor import along, gather_dim, write_at
+from repro_torch.distributed.dtensor import along, gather_dim, pinned, split_dim, write_at
 from repro_torch.models.layers import ParamSpec, einsum, rms_norm
 
 F32 = torch.float32
@@ -84,6 +84,12 @@ def _segsum(x: torch.Tensor) -> torch.Tensor:
     return torch.where(mask, out, -torch.inf)
 
 
+def _heads_grouped(t: torch.Tensor, dim: int, G: int) -> torch.Tensor:
+    """The H heads at dim ``dim`` as ``(G, H // G)`` (on a DTensor whose
+    head shards do not divide the G groups, the heads gathered first)."""
+    return split_dim("mamba2.group_heads", t, dim, G)
+
+
 def ssd_chunked(
     x: torch.Tensor,    # [B, T, H, P]
     dt: torch.Tensor,   # [B, T, H]   (post-softplus)
@@ -99,7 +105,6 @@ def ssd_chunked(
     if T % chunk:
         raise ValueError(f"T={T} is not a multiple of the SSD chunk {chunk}")
     nc = T // chunk
-    rep = H // G
 
     xc = x.reshape(Bb, nc, chunk, H, P)
     dtc = dt.reshape(Bb, nc, chunk, H)
@@ -110,18 +115,18 @@ def ssd_chunked(
 
     # intra-chunk (quadratic in Q), grouped: H = G×rep as two indices
     Lh = torch.exp(
-        _segsum(dA.reshape(Bb, nc, chunk, G, rep).permute(0, 1, 3, 4, 2))
+        _segsum(_heads_grouped(dA, 3, G).permute(0, 1, 3, 4, 2))
     )                                                        # [B,nc,G,r,Q,Q]
     CB = einsum("bnqgs,bnkgs->bngqk", Cc, Bc)                 # [B,nc,G,Q,K]
     xdt = xc * dtc[..., None]                                # [B,nc,Q,H,P]
-    xdt_g = xdt.reshape(Bb, nc, chunk, G, rep, P)
+    xdt_g = _heads_grouped(xdt, 3, G)
     y_diag = einsum(
         "bngqk,bngrqk,bnkgrp->bnqgrp", CB.to(F32), Lh.to(F32), xdt_g.to(F32),
     ).reshape(Bb, nc, chunk, H, P)
 
     # chunk states (B broadcast from G groups to H heads by a grouped einsum)
     decay_states = torch.exp(dA_cs[:, :, -1:, :] - dA_cs)   # [B,nc,Q,H]
-    xdtd_g = (xdt * decay_states[..., None]).reshape(Bb, nc, chunk, G, rep, P)
+    xdtd_g = _heads_grouped(xdt * decay_states[..., None], 3, G)
     states = einsum(
         "bnqgs,bnqgrp->bngrps", Bc.to(F32), xdtd_g.to(F32),
     ).reshape(Bb, nc, H, P, N)
@@ -137,12 +142,15 @@ def ssd_chunked(
 
     # off-diagonal contribution (grouped: no head-repeat materialization)
     state_decay = torch.exp(dA_cs)                           # [B,nc,Q,H]
-    h_prev_g = h_prev.reshape(Bb, nc, G, rep, P, N)
+    h_prev_g = _heads_grouped(h_prev, 2, G)
     y_off = einsum(
         "bnqgs,bngrps->bnqgrp", Cc.to(F32), h_prev_g
     ).reshape(Bb, nc, chunk, H, P) * state_decay[..., None]
 
-    y = (y_diag.to(F32) + y_off).reshape(Bb, T, H, P)
+    # on DTensors the gradient of y may come back with T sharded over two
+    # mesh dims, which the view into chunks cannot split: y takes it in its
+    # own placements
+    y = pinned((y_diag.to(F32) + y_off).reshape(Bb, T, H, P))
     return y.to(x.dtype), h
 
 
@@ -173,7 +181,7 @@ def mamba2_forward(p: Dict[str, torch.Tensor], xin: torch.Tensor,
     return einsum("btk,kd->btd", y, p["out_proj"])
 
 
-def mamba2_init_cache(batch: int, d: int, s: SSMConfig, dtype, device="cpu"):
+def mamba2_init_cache(batch: int, d: int, s: SSMConfig, dtype, device):
     d_inner, H, conv_dim = ssm_dims(d, s)
     gN = s.n_groups * s.d_state
     return {
@@ -211,7 +219,7 @@ def mamba2_decode_step(
         "bhp,bhs->bhps", xh * dt[..., None], Bh.to(F32))
     y = einsum("bhps,bhs->bhp", h, Ch.to(F32))
     y = y + xh * p["D"][None, :, None]
-    y = gather_dim("mamba.decode_heads", y, 2, over=1)    # P into (H, P)
+    y = gather_dim("mamba.decode_heads", y, 2)    # P into (H, P)
     y = y.reshape(Bb, 1, d_inner).to(xin.dtype)
     y = rms_norm(y * F.silu(z), p["norm"])
     out = einsum("btk,kd->btd", y, p["out_proj"])

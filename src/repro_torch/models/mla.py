@@ -82,7 +82,7 @@ def mla_forward(p: Dict[str, torch.Tensor], x: torch.Tensor, m: MLAConfig,
     return einsum("bthk,hkd->btd", ctx, p["wo"])
 
 
-def mla_init_cache(batch: int, max_len: int, m: MLAConfig, dtype, device="cpu"):
+def mla_init_cache(batch: int, max_len: int, m: MLAConfig, dtype, device):
     return {
         "c_kv": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype, device=device),
         "k_rope": torch.zeros((batch, max_len, m.qk_rope_dim), dtype=dtype, device=device),

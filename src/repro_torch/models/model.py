@@ -527,7 +527,7 @@ def decode_step(cfg: ModelConfig, params, cache, tokens: torch.Tensor,
             a = rms_norm(x, p["ln_x"], cfg.norm_eps)
             q = einsum("btd,dhk->bthk", a, p["xattn"]["wq"])
             KV = xk.shape[2]
-            qg = q.reshape(*q.shape[:2], KV, q.shape[2] // KV, q.shape[3])
+            qg = attn._group(q, KV)
             s = einsum("btkgh,bskh->bkgts", qg, xk).float() * (q.shape[-1] ** -0.5)
             pr = torch.softmax(s, dim=-1).to(x.dtype)
             ctx = einsum("bkgts,bskh->btkgh", pr, xv).reshape(*q.shape)

@@ -31,7 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.schedule import lpt_schedule
-from repro_torch.distributed.dtensor import replicated_call
+from repro_torch.distributed.dtensor import reduced, replicated_call, split_dim
 from repro_torch.models.layers import ParamSpec, einsum, mlp_specs, swiglu
 
 
@@ -56,8 +56,9 @@ def capacity(m: MoEConfig, N: int) -> int:
 
 
 def _route(probs: torch.Tensor, K: int, expert_perm: Optional[torch.Tensor]):
-    """Top-``K`` experts of each token and their renormalised weights."""
-    top_w, top_e = torch.topk(probs, K, dim=-1)               # [N, K]
+    """Top-``K`` experts of each token (``probs`` [B, T, E]) and their
+    renormalised weights."""
+    top_w, top_e = torch.topk(probs.reshape(-1, probs.shape[-1]), K, dim=-1)   # [N, K]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     if expert_perm is not None:
         top_e = expert_perm.to(top_e.device)[top_e]
@@ -78,27 +79,30 @@ def _slots(top_e: torch.Tensor, E: int, C: int, K: int):
     return buf_pos, keep, tok_idx, onehot
 
 
-def _dispatch(xt: torch.Tensor, buf_pos: torch.Tensor, tok_idx: torch.Tensor, E: int,
+def _dispatch(x: torch.Tensor, buf_pos: torch.Tensor, tok_idx: torch.Tensor, E: int,
               C: int) -> torch.Tensor:
-    """The tokens scattered into their experts' slots: ``[E, C, d]``."""
+    """The tokens (``x`` [B, T, d]) scattered into their experts' slots:
+    ``[E, C, d]``."""
+    xt = x.reshape(-1, x.shape[-1])
     buf = torch.zeros((E * C + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
     buf[buf_pos] = xt[tok_idx]                                 # row E*C: the dropped
     return buf[: E * C].reshape(E, C, xt.shape[1])
 
 
 def _combine(y: torch.Tensor, buf_pos: torch.Tensor, keep: torch.Tensor,
-             top_w: torch.Tensor, tok_idx: torch.Tensor, N: int,
+             top_w: torch.Tensor, tok_idx: torch.Tensor, lead: Tuple[int, int],
              dtype: torch.dtype) -> torch.Tensor:
     """The experts' rows ``y [E·C, d]`` gathered back to their tokens,
-    weighted and summed in ``dtype`` (the tokens'): ``[N, d]``."""
+    weighted and summed in ``dtype`` (the tokens'): ``[B, T, d]`` for
+    ``lead`` (B, T)."""
     E_C = y.shape[0]
     gathered = y[torch.clamp(buf_pos, max=E_C - 1)]
     gathered = torch.where(keep[:, None], gathered, torch.zeros((), dtype=y.dtype,
                                                                 device=y.device))
     weighted = gathered * top_w.reshape(-1)[:, None].to(dtype)
-    out = torch.zeros((N, y.shape[1]), dtype=dtype, device=y.device)
+    out = torch.zeros((lead[0] * lead[1], y.shape[1]), dtype=dtype, device=y.device)
     out.index_add_(0, tok_idx, weighted.to(dtype))
-    return out
+    return out.reshape(*lead, y.shape[1])
 
 
 def moe_forward(
@@ -111,8 +115,11 @@ def moe_forward(
     N = B * T
     if m.token_chunk and N > m.token_chunk and N % m.token_chunk == 0:
         # token-chunked dispatch: the [E·C, d] buffers at chunk granularity
+        # (on a DTensor whose token shards do not divide the chunks, the
+        # tokens gathered first: the dispatch replicates them anyway)
         nch = N // m.token_chunk
-        xc = x.reshape(nch, 1, m.token_chunk, d)
+        xc = split_dim("moe.token_chunk", x.reshape(N, d), 0, nch).reshape(
+            nch, 1, m.token_chunk, d)
         inner = dataclasses.replace(m, token_chunk=0)
         ys, lb, drop, load = [], [], [], []
         for i in range(nch):
@@ -129,37 +136,42 @@ def moe_forward(
         return torch.stack(ys).reshape(B, T, d), aux
     E, K = m.n_experts, m.top_k
     C = capacity(m, N)
-    xt = x.reshape(N, d)
 
-    logits = einsum("nd,de->ne", xt, p["router"]).float()
+    # the tokens stay [B, T, d] into and out of the replicated calls: on
+    # DTensors a flattened batch sharded over two mesh dims (or its
+    # gradient, over batch and sequence) comes out strided, which DTensor
+    # gathers only from real data
+    logits = einsum("btd,de->bte", x, p["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     # the routing, the slots and the scatter and combine run on the whole
     # token set, as on one device (the slots are global running counts)
     top_w, top_e = replicated_call("moe.topk", _route, probs, K, expert_perm)
     buf_pos, keep, tok_idx, onehot = _slots(top_e, E, C, K)
     dropped = (~keep).sum(dtype=torch.int32)
-    eb = replicated_call("moe.dispatch", _dispatch, xt, buf_pos, tok_idx, E, C)
+    eb = replicated_call("moe.dispatch", _dispatch, x, buf_pos, tok_idx, E, C)
 
-    g = einsum("ecd,edf->ecf", eb, p["w_gate"])
-    u = einsum("ecd,edf->ecf", eb, p["w_up"])
+    # on DTensors the replicated tokens meet FSDP-sharded weights: the
+    # products come out as pending sums, reduced before the gate
+    g = reduced(einsum("ecd,edf->ecf", eb, p["w_gate"]))
+    u = reduced(einsum("ecd,edf->ecf", eb, p["w_up"]))
     h = F.silu(g) * u
     y = einsum("ecf,efd->ecd", h, p["w_down"]).reshape(E * C, d)
-    out = replicated_call("moe.combine", _combine, y, buf_pos, keep, top_w, tok_idx, N,
+    out = replicated_call("moe.combine", _combine, y, buf_pos, keep, top_w, tok_idx, (B, T),
                           x.dtype)
 
     if m.n_shared:
         sp = p["shared"]
-        out = out + swiglu(xt, sp["gate"], sp["up"], sp["down"])
+        out = out + swiglu(x, sp["gate"], sp["up"], sp["down"])
 
     # Switch-style load-balance aux loss + stats for the LPT placement
     frac_tokens = F.one_hot(top_e[:, 0], E).float().mean(0)
-    frac_probs = probs.mean(0)
+    frac_probs = probs.mean((0, 1))
     aux = {
         "lb_loss": E * torch.sum(frac_tokens * frac_probs),
         "dropped": dropped,
         "expert_load": onehot.sum(dim=0, dtype=torch.int32),
     }
-    return out.reshape(B, T, d), aux
+    return out, aux
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.dtensor import (constrain, full, gather_dim, is_dtensor,
-                                             sharded_context)
+from repro_torch.distributed.dtensor import (constrain, full, is_dtensor, sharded_context,
+                                             split_dim)
 from repro_torch.distributed.sharding import PartitionSpec
 from repro_torch.models import model as M
 from repro_torch.models.layers import leaves, torch_dtype, tree_of
@@ -69,8 +69,10 @@ def accumulated_grads(cfg: ModelConfig, params, batch, accum: int = 1,
                       batch_spec=None, act_spec=None):
     """``(loss, grads)`` of the train step: with ``accum > 1`` the batch's
     leading dim is split into ``accum`` microbatches (each redistributed to
-    ``batch_spec`` on its own leading dim), whose gradients are summed in
-    ``accum_dtype`` and divided by ``accum`` (the loss likewise, in f32);
+    ``batch_spec`` on its own leading dim; a batch whose shards do not
+    divide ``accum`` is gathered first, ``dtensor.split_dim``), whose
+    gradients are summed in ``accum_dtype`` and divided by ``accum`` (the
+    loss likewise, in f32);
     with ``accum == 1`` the gradients keep the parameters' dtype."""
     if accum == 1:
         return value_and_grad(cfg, params, batch, chunk, act_spec)
@@ -80,8 +82,7 @@ def accumulated_grads(cfg: ModelConfig, params, batch, accum: int = 1,
     dt = torch_dtype(accum_dtype)
 
     def resh(v):
-        v = gather_dim("microbatch.reshape", v, 0)
-        out = v.reshape((accum, B // accum) + tuple(v.shape[1:]))
+        out = split_dim("microbatch.reshape", v, 0, accum)
         if batch_spec is None:
             return out
         return constrain(out, PartitionSpec(None, batch_spec, *([None] * (v.dim() - 1))))

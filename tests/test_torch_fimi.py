@@ -209,6 +209,7 @@ def test_launcher_imports_neither_jax_nor_repro(tmp_path):
         " timeout=120) == 0\n"
         "import repro_torch.distributed.sharding, repro_torch.distributed.dtensor\n"
         "import repro_torch.launch.mesh, repro_torch.launch.input_specs\n"
+        "import repro_torch.distributed.hlo, repro_torch.launch.dryrun\n"
         "from repro_torch.launch import train\n"
         "train.main(['--smoke', '--steps', '2', '--batch', '2', '--seq', '16', '--device', 'cpu',"
         f" '--ckpt-dir', {str(tmp_path / 'ckpt')!r}])\n"
@@ -283,7 +284,7 @@ def test_port_sources_import_neither_jax_nor_repro():
                    "configs/registry.py", "optim/adamw.py", "data/lm_pipeline.py",
                    "checkpoint/manager.py", "launch/train.py", "models/steps.py",
                    "distributed/sharding.py", "distributed/dtensor.py", "launch/mesh.py",
-                   "launch/input_specs.py"):
+                   "launch/input_specs.py", "distributed/hlo.py", "launch/dryrun.py"):
         assert ROOT / "src" / "repro_torch" / module in files
     for path in files:
         for mod in _imported_modules(path):

@@ -1,9 +1,10 @@
-"""The sharded step on 4 gloo ranks against the port's one-device step, on
-the CPU, in f32 (``test_torch_shard_step*.py``).
+"""The sharded step on gloo ranks against the port's one-device step, on
+the CPU, in f32 (``test_torch_shard_step*.py``, ``test_torch_shard_save.py``).
 
 The weights are the reference's ``M.init`` at a fixed key
-(``torch_lm_train_parity.models``), the batch of 8 rows is drawn with numpy
-from a seed.  The ranks (``torch_shard_rank.py``, spawned by
+(``torch_lm_train_parity.models``), the batch (8 rows at accum 2 unless a
+run asks for others) is drawn with numpy from a seed; the ranks are 4 on a
+2×2 mesh unless a run asks for the 8 of 2×2×2.  The ranks (``torch_shard_rank.py``, spawned by
 ``repro_torch.launch.ranks.spawn``) run while this process computes the
 same steps on plain tensors; then every result is held to the bounds of
 ``torch_lm_train_parity``: the loss within 1e-5 nats, each leaf's gradient
@@ -43,27 +44,27 @@ TREES = {"grad": "grads", "param": "params", "m": "m", "v": "v"}
 RANK_TIMEOUT_S = 170
 
 
-def np_batch(cfg):
-    return tp.batch(cfg, B=B)
+def np_batch(cfg, rows=B):
+    return tp.batch(cfg, B=rows)
 
 
-def one_device(cfg, model, b):
+def one_device(cfg, model, b, accum=ACCUM):
     """The steps of ``torch_shard_rank.run_arch`` on plain tensors."""
     batch = parity.torch_batch(b)
     out = {}
-    loss, grads = steps.accumulated_grads(cfg, model.params(), batch, ACCUM)
+    loss, grads = steps.accumulated_grads(cfg, model.params(), batch, accum)
     out["grad_loss"] = float(loss)
     out["grads"] = {"/".join(k): g.detach().numpy() for k, g in leaves(grads)}
     fresh = M.LM(cfg, _copy_tree(model.params())).params()
     opt_cfg = adamw.AdamWConfig(**OPT)
-    fresh, opt, metrics = steps.make_train_step(cfg, opt_cfg, accum=ACCUM)(
+    fresh, opt, metrics = steps.make_train_step(cfg, opt_cfg, accum=accum)(
         fresh, adamw.init(fresh, opt_cfg), batch)
     out.update(loss=float(metrics["loss"]), grad_norm=float(metrics["grad_norm"]),
                lr=float(metrics["lr"]))
     out["params"] = {"/".join(k): p.detach().numpy() for k, p in leaves(fresh)}
     for name in ("m", "v"):
         out[name] = {"/".join(k): t.numpy() for k, t in leaves(getattr(opt, name))}
-    n = B // ACCUM
+    n = next(iter(batch.values())).shape[0] // accum
     pre = {k: v[:n] for k, v in batch.items() if k != "loss_mask"}
     out["prefill"] = steps.make_prefill_step(cfg)(model.params(), pre).numpy()
     cache = M.init_cache(cfg, n, MAX_LEN, torch.float32, "cpu")
@@ -85,39 +86,43 @@ def _copy_tree(tree):
     return tree.detach().clone()
 
 
-def spawn(job_dir: Path):
-    """Run the 4 ranks on ``job_dir`` in a thread; returns (thread, result)."""
+def spawn(job_dir: Path, world: int = 4):
+    """Run the ranks on ``job_dir`` in a thread; returns (thread, result)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     result = {}
 
     def go():
         result["code"] = ranks.spawn([sys.executable, str(ROOT / "tests" / "torch_shard_rank.py"),
-                                      str(job_dir)], 4, timeout=RANK_TIMEOUT_S, env=env)
+                                      str(job_dir)], world, timeout=RANK_TIMEOUT_S, env=env)
 
     th = threading.Thread(target=go)
     th.start()
     return th, result
 
 
-def write_job(job_dir: Path, archs, restore=(), changes=None):
+def write_job(job_dir: Path, archs, restore=(), changes=None, mesh=MESH, accum=ACCUM,
+              save=()):
     """The job file (the ranks read it first); ``changes``: ``{arch: {field:
-    value}}`` replaced in a smoke config on both sides."""
+    value}}`` replaced in a smoke config on both sides; ``mesh``: the debug
+    mesh's sizes, ``(data, model)`` or ``(pod, data, model)``; ``save``: the
+    configs whose sharded state after the train step the ranks checkpoint
+    (``{"arch", "dir"}``)."""
     job_dir.mkdir(parents=True, exist_ok=True)
     tmp = job_dir / "job.json.tmp"
     tmp.write_text(json.dumps(
-        {"archs": list(archs), "accum": ACCUM, "opt": OPT, "max_len": MAX_LEN,
+        {"archs": list(archs), "accum": accum, "opt": OPT, "max_len": MAX_LEN,
          "decode_steps": DECODE_STEPS, "restore": list(restore),
-         "changes": changes or {}}))
+         "changes": changes or {}, "mesh": list(mesh), "save": list(save)}))
     os.replace(tmp, job_dir / "job.json")
 
 
-def write_inputs(job_dir: Path, arch: str, changes=None):
+def write_inputs(job_dir: Path, arch: str, changes=None, rows=B):
     """A config's reference weights and batch for the ranks; returns the
     config, the port's model on those weights and the numpy batch."""
     _, params, cfg, model = tp.models(arch, **(changes or {}))
     np.savez(job_dir / f"weights_{arch}.npz",
              **{"/".join(k): np.asarray(v) for k, v in leaves(parity.np_tree(params))})
-    b = np_batch(cfg)
+    b = np_batch(cfg, rows)
     np.savez(job_dir / f"batch_{arch}.npz", **b)
     (job_dir / f"ready_{arch}").touch()
     return cfg, model, b
@@ -134,11 +139,12 @@ def _share(got, want, rel, what):
     return err / scale
 
 
-def assemble(job_dir: Path, arch: str, shapes):
+def assemble(job_dir: Path, arch: str, shapes, mesh=MESH):
     """``{key: full array}`` from each rank's shards (``put_local``), with
     ``shapes`` the full shapes: every element written by each rank that
     holds it, and replicas required to agree bit for bit."""
-    ranks_ = [dict(np.load(job_dir / f"local_{arch}_{r}.npz")) for r in range(4)]
+    ranks_ = [dict(np.load(job_dir / f"local_{arch}_{r}.npz"))
+              for r in range(int(np.prod(mesh)))]
     out = {}
     for key, shape in shapes.items():
         full = np.full(shape, np.nan)
@@ -150,8 +156,8 @@ def assemble(job_dir: Path, arch: str, shapes):
                 parts, at = 1, 0
                 for i, p in enumerate(pl):
                     if p == ["S", d]:
-                        parts *= MESH[i]
-                        at = at * MESH[i] + int(coord[i])
+                        parts *= mesh[i]
+                        at = at * mesh[i] + int(coord[i])
                 size = n // parts
                 index.append(slice(at * size, (at + 1) * size))
             block = full[tuple(index)]
@@ -163,13 +169,13 @@ def assemble(job_dir: Path, arch: str, shapes):
     return out
 
 
-def check(arch, job_dir: Path, cfg, want):
+def check(arch, job_dir: Path, cfg, want, mesh=MESH):
     """One config's rank results against the one-device ones."""
     got = dict(np.load(job_dir / f"out_{arch}.npz"))
     shapes = {f"{tree}/{k}": v.shape for tree, name in TREES.items()
               for k, v in want[name].items()}
     shapes.update({f"cache/{k}": v.shape for k, v in want["cache"].items()})
-    got.update(assemble(job_dir, arch, shapes))
+    got.update(assemble(job_dir, arch, shapes, mesh))
     g_rel, n_rel = tp.grad_rel(arch), tp.norm_rel(arch)
     assert bool(got["grad_placements_equal"].all()), arch
     assert abs(float(got["grad_loss"]) - want["grad_loss"]) <= tp.LOSS_TOL, arch
@@ -200,22 +206,25 @@ def check(arch, job_dir: Path, cfg, want):
 class Run:
     """The ranks' run on ``archs`` beside the one-device steps: ``start``
     spawns the ranks first and writes each config's inputs while they
-    start; ``finish`` waits for them."""
+    start; ``finish`` waits for them.  ``mesh``, ``rows`` and ``accum``: the
+    debug mesh, the batch's rows and the microbatches (``write_job``)."""
 
-    def __init__(self, tmp_path: Path, archs, restore=(), changes=None):
+    def __init__(self, tmp_path: Path, archs, restore=(), changes=None, mesh=MESH, rows=B,
+                 accum=ACCUM, save=()):
         self.job_dir = tmp_path / "job"
         self.archs = list(archs)
+        self.mesh = tuple(mesh)
         changes = changes or {}
-        write_job(self.job_dir, self.archs, restore, changes)
-        self.thread, self.result = spawn(self.job_dir)
+        write_job(self.job_dir, self.archs, restore, changes, mesh, accum, save)
+        self.thread, self.result = spawn(self.job_dir, int(np.prod(mesh)))
         self.want, self.cfgs = {}, {}
         threads = torch.get_num_threads()
         torch.set_num_threads(1)    # the ranks have the cores
         try:
             for arch in self.archs:
-                cfg, model, b = write_inputs(self.job_dir, arch, changes.get(arch))
+                cfg, model, b = write_inputs(self.job_dir, arch, changes.get(arch), rows)
                 self.cfgs[arch] = cfg
-                self.want[arch] = one_device(cfg, model, b)
+                self.want[arch] = one_device(cfg, model, b, accum)
         except BaseException:
             self.thread.join()
             raise
@@ -228,7 +237,7 @@ class Run:
         return self
 
     def check(self, arch):
-        return check(arch, self.job_dir, self.cfgs[arch], self.want[arch])
+        return check(arch, self.job_dir, self.cfgs[arch], self.want[arch], self.mesh)
 
     def replications(self):
         return json.loads((self.job_dir / "replications.json").read_text())

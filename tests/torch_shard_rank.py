@@ -2,22 +2,28 @@
 
   python tests/torch_shard_rank.py JOB_DIR
 
-run as each of 4 ranks of ``repro_torch.launch.ranks.spawn`` (gloo, one
-thread a rank) on a 2×2 ``("data", "model")`` mesh.  ``JOB_DIR/job.json``
+run as each rank of ``repro_torch.launch.ranks.spawn`` (gloo, one thread a
+rank) on the job's debug mesh: 2×2 ``("data", "model")`` (4 ranks) or
+2×2×2 ``("pod", "data", "model")`` (8 ranks).  ``JOB_DIR/job.json``
 names the smoke configs; for each, ``weights_<arch>.npz`` holds the
 reference's parameters and ``batch_<arch>.npz`` the batch, written while
 the ranks start (``ready_<arch>`` marks them complete).  The parameters
 are distributed under the reference dry run's layout for the full config
-(``sharding.step_layout``), then: the train step's gradients at accum 2
-through ``accumulated_grads`` (``batch_spec``/``act_spec`` set), a
+(``sharding.step_layout``), then: the train step's gradients at the job's
+accum through ``accumulated_grads`` (``batch_spec``/``act_spec`` set), a
 prefill, two decode steps against a cache under ``cache_shardings``
 (enc-dec: after ``encode``), and last the train step itself through
 ``make_train_step``, which updates the weights in place.
 Each rank writes its shards of the gradients, the parameters and both
 moments after the step and the cache to ``local_<arch>_<rank>.npz`` with
 their placements and its mesh coordinate (no collective); rank 0 writes
-the loss, the metrics, the logits and whether each gradient's placements
-are its parameter's to ``out_<arch>.npz``.  With ``restore`` in
+the loss, the metrics, the logits, whether each gradient's placements are
+its parameter's and the train step's collectives
+(``hlo.CollectiveRecorder``) to ``out_<arch>.npz``.  With ``save`` in the
+job, the sharded state after the train step (parameters, AdamW ``m``, ``v``
+and ``step``) is checkpointed by every rank (``CheckpointManager.save``),
+rank 0 writes it gathered to ``saved_<arch>.npz``, and the ranks restore it
+onto the mesh and check each leaf's placements and bits.  With ``restore`` in
 the job, the checkpoint directories it names are restored onto the mesh
 and gathered back into ``restored_<i>.npz``.  Imports nothing of JAX.
 """
@@ -33,7 +39,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.manager import CheckpointManager, flatten
 from repro_torch.configs.registry import get_config
-from repro_torch.distributed import dtensor
+from repro_torch.distributed import dtensor, hlo
 from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models import model as M
@@ -123,7 +129,10 @@ def run_arch(job, mesh, arch, out_dir: Path):
     step = steps.make_train_step(cfg, opt_cfg, accum=job["accum"],
                                  batch_spec=layout.batch_axes, act_spec=layout.act_spec)
     opt = adamw.init(dparams, opt_cfg)
-    dparams, opt, metrics = step(dparams, opt, dist_batch(batch))
+    recorder = hlo.CollectiveRecorder()    # the step's collectives, over gloo
+    with recorder:
+        dparams, opt, metrics = step(dparams, opt, dist_batch(batch))
+    out["collectives"] = np.array(json.dumps(recorder.summary()))
     for name in ("loss", "grad_norm", "lr"):
         out[name] = np.asarray(float(metrics[name]))
     for k, p in leaves(dparams):
@@ -133,11 +142,42 @@ def run_arch(job, mesh, arch, out_dir: Path):
             put_local(local, f"{name}/" + "/".join(k), t)
     walls["train_step"] = time.perf_counter() - t0 - sum(walls.values())
     out["walls"] = np.array(json.dumps(walls))
+    for entry in job.get("save", ()):
+        if entry["arch"] == arch:
+            save_and_restore(cfg, layout, mesh, {"params": dparams, "opt": opt}, entry["dir"],
+                             out_dir / f"saved_{arch}.npz")
     rank = dist.get_rank()
     np.savez(out_dir / f"local_{arch}_{rank}.npz", coord=np.array(mesh.get_coordinate()),
              **local)
     if rank == 0:
         np.savez(out_dir / f"out_{arch}.npz", **out)
+
+
+def save_and_restore(cfg, layout, mesh, state, directory, out_path: Path) -> None:
+    """``state`` saved by every rank, then restored onto the mesh under the
+    layout's placements: each leaf's placements and bits as saved (raises
+    otherwise); rank 0 writes the gathered state to ``out_path``."""
+    gathered = {k: dtensor.full(v).detach() for k, v in flatten(state).items()}
+    CheckpointManager(directory).save(1, state, extra={"by": "ranks"})
+    tmpl = M.abstract(cfg)
+    template = {"params": tmpl, "opt": adamw.AdamWState(
+        torch.empty((), dtype=torch.int32, device="meta"), tmpl, tmpl)}
+    ps = shd.tree_shardings(tmpl, M.axes(cfg), mesh, layout.rules)
+    os_ = shd.tree_shardings(tmpl, M.axes(cfg), mesh, layout.opt_rules)
+    shardings = {"params": ps, "opt": adamw.AdamWState(None, os_, os_)}
+    back, extra = CheckpointManager(directory).restore(template, device="cpu",
+                                                       shardings=shardings)
+    saved = flatten(state)
+    for k, v in flatten(back).items():
+        if dtensor.is_dtensor(saved[k]) != dtensor.is_dtensor(v):
+            raise AssertionError(f"{k}: restored as {type(v).__name__}")
+        if dtensor.is_dtensor(v) and tuple(v.placements) != tuple(saved[k].placements):
+            raise AssertionError(f"{k}: placements {v.placements} != {saved[k].placements}")
+        if not torch.equal(dtensor.full(v), gathered[k]):
+            raise AssertionError(f"{k}: restored bits differ")
+    if dist.get_rank() == 0:
+        np.savez(out_path, extra=np.array(json.dumps(extra)),
+                 **{k.replace("/", "|"): v.numpy() for k, v in gathered.items()})
 
 
 def restore(job, mesh, out_dir: Path):
@@ -171,7 +211,10 @@ def main(job_dir: str) -> None:
     job = json.loads((out_dir / "job.json").read_text())
     dist.init_process_group("gloo")
     try:
-        mesh = mesh_mod.make_debug_mesh(2, 2)
+        sizes = job.get("mesh", [2, 2])
+        shape = (mesh_mod.debug_shape(*sizes[1:], pod=sizes[0]) if len(sizes) == 3
+                 else mesh_mod.debug_shape(*sizes))
+        mesh = mesh_mod.device_mesh(shape)
         for arch in job["archs"]:
             run_arch(job, mesh, arch, out_dir)
         if job.get("restore"):
